@@ -8,27 +8,40 @@ Phases:
 
 1. the device: its name and power limit, the torch, CUDA, nvcc and cc
    versions;
-2. the build: K1 (`csrc/kmeans_assign.cu`, nvcc for sm_90a, with the
-   registers, shared memory and spills ptxas reports) and the host C runtime,
-   both from the sources in this checkout;
-3. K1 against its plain PyTorch version at real widths, exact equality of
-   every output: (a) voronoi-like, 4 lanes x 1024^2 points, d = 5, k = 128;
-   (b) cluster-colors-like, 8 lanes of unique colours weighted by their
-   counts, d = 3, k = 32; (c) duplicated points and centroids; (d) a frozen
-   lane; (e) k = 2048 at 65536 points (the large-k statistics branch). Then
-   the kernel and the plain version timed on the card in turns at (a), (b);
-4. the main path through the normal entry points: `runner.measure_all(
-   from_spec(spec, device="cuda"), paths, batch=8)` for cluster-colors(32)
-   and voronoi(128) over 8 images of 1024^2 (bench.py's recipe, seed 2024)
-   and one 2040x1356 image, written as PNGs; K1's launch count over this
-   phase must be above 0, the fused voronoi decode+MSE must have run, and
-   the runner must not have fallen back to per-image decode;
-5. the card against the CPU: identical streams for two 256^2 crops with both
-   codecs, and the phase-4 voronoi streams decoded on the CPU give the MSEs
-   measured on the card.
+2. the build, all libraries at once (one compiler process each): K1
+   (`csrc/kmeans_assign.cu`), K2 and K3 (`csrc/approx_rle.cu`), both with
+   nvcc for sm_90a, with the registers, shared memory and spills ptxas
+   reports, and the host C runtime, all from the sources in this checkout;
+3. every kernel against its plain PyTorch version at real widths, exact
+   equality of every output. K1: (a) voronoi-like, 4 lanes x 1024^2
+   points, d = 5, k = 128; (b) cluster-colors-like, 8 lanes of unique
+   colours weighted by their counts, d = 3, k = 32; (c) duplicated points
+   and centroids; (d) a frozen lane; (e) k = 2048 at 65536 points (the
+   large-k statistics branch). K2 on the chunked Hilbert scans the chunked
+   route gives it: (a) a 1024^2 scan, 1024 chunks, allow 4; (b) the same at
+   allow 16; (c) the 2040x1356 scan, 1024 chunks of 2702, allow 4; (d)
+   crafted boundary ties at allow 2 (flags set); (e) allow 64. K3 on 8
+   streams of 16384 pixels opening with crafted boundary runs at allow 4,
+   16 and 64. Then each kernel and its plain version timed on the card in
+   turns, and K3 alone at 8 x 1024^2;
+4. the main paths through the normal entry points, each with the kernel
+   counts set to 0 just before it and read just after: `runner.
+   measure_all(from_spec(spec, device="cuda"), paths, batch=8)` over 8
+   images of 1024^2 (bench.py's recipe, seed 2024) and one 2040x1356
+   image, written as PNGs. (i) cluster-colors(32) and voronoi(128): K1 must
+   have launched, the fused voronoi decode+MSE must have run, and the
+   runner must not have fallen back to per-image decode. (ii) hilbert(rle),
+   hilbert(rle(4)) and hilbert(zip) with no gate (the host C runtime), then
+   hilbert(rle(4)) under CNIIC_CHUNKED_RLE=1 (K2 must have launched and the
+   streams must equal the ungated ones byte for byte) and under
+   CNIIC_PALLAS_RLE=1 (K3 must have launched);
+5. the card against the CPU: identical streams for two 256^2 crops with the
+   k-means codecs and with hilbert(rle(4)) under each gate (the CPU runs
+   the plain versions), and the phase-4 voronoi streams decoded on the CPU
+   give the MSEs measured on the card.
 
 It ends with a line holding the card's name and power limit, a JSON line
-describing each kernel of the path, and the JSON result line. Any failure
+describing each kernel of the paths, and the JSON result line. Any failure
 raises (non-zero exit, no result line). Without a card it fails unless
 --rehearse-cpu is given, and then its last line says "platform": "cpu".
 """
@@ -46,29 +59,44 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from cniic_tpu_torch import _build, native, runner
+from cniic_tpu_torch import _build, hilbert, native, runner
 from cniic_tpu_torch.codecs import VoronoiCluster, from_spec
 from cniic_tpu_torch.codecs.base import pixels_row_major
 from cniic_tpu_torch.image_io import save_png
-from cniic_tpu_torch.ops import histogram, kmeans_kernel
+from cniic_tpu_torch.ops import approx_rle, histogram, kmeans_kernel
 from cniic_tpu_torch.ops import kmeans as km
 
 K1_SOURCE = "cniic_tpu_torch/csrc/kmeans_assign.cu"
 K1_REPLACES = "cniic_tpu/ops/kmeans_pallas.py:52"
+RLE_SOURCE = "cniic_tpu_torch/csrc/approx_rle.cu"
+K2_REPLACES = "cniic_tpu/ops/approx_rle.py:246"
+K3_REPLACES = "cniic_tpu/ops/approx_rle.py:54"
 SPECS = ("cluster-colors(32)", "voronoi(128)")
+HILBERT_SPECS = ("hilbert(rle)", "hilbert(rle(4))", "hilbert(zip)")
+GATED = "hilbert(rle(4))"
+GATES = ("CNIIC_CHUNKED_RLE", "CNIIC_PALLAS_RLE")
 
 # (real, rehearsal) sizes
 SIZES = {
     False: dict(side=1024, div2k=(1356, 2040), crop=256, tie_n=70000,
-                frozen_n=200000, bigk_side=256, iters=20),
+                frozen_n=200000, bigk_side=256, iters=20, k3_len=16384),
     True: dict(side=64, div2k=(68, 102), crop=32, tie_n=3000,
-               frozen_n=2000, bigk_side=64, iters=2),
+               frozen_n=2000, bigk_side=64, iters=2, k3_len=1024),
 }
+
+# (allow, count c, t0, t1, t2): a run of c pixels then a pixel x with
+# t = S - c*x, where the f32 distance sum fma(t2, t2, fma(t0, t0, t1*t1))
+# rejects x and the unfused sum would accept it
+K3_FMA_CASES = [(64, 98, -2577, -763, 5667), (64, 246, -6038, -13622, 5085),
+                (64, 86, 4459, 131, 3224)]
+# the boundary tie K2 must flag at allow 2 (tests/torch_rle_cases.py)
+TIE = np.array([[3, 3, 3], [3, 3, 2], [4, 4, 3], [2, 2, 2]], np.uint8)
 
 
 class SmokeFailure(RuntimeError):
@@ -125,20 +153,54 @@ def phase_device(rehearse: bool):
     return torch.device("cuda"), card
 
 
+def _ptxas_entries(log: str) -> dict:
+    """kernel entry name -> (registers, spill store B, spill load B, smem B)
+    from an `nvcc -Xptxas -v` log."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        check(regs is not None and spills is not None,
+              f"ptxas reported no registers or spills for {name}")
+        out[name] = (int(regs.group(1)), int(spills.group(1)),
+                     int(spills.group(2)), int(smem.group(1)) if smem else 0)
+    return out
+
+
 def phase_build(rehearse: bool) -> None:
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from sources
+    jobs = {"C runtime": native._load}
+    if not rehearse:
+        jobs["K1"] = kmeans_kernel.load_library
+        jobs["K2+K3"] = approx_rle.load_library
+    seconds, errors = {}, {}
+
+    def build(name, fn):
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except BaseException as e:  # re-raised below, in the main thread
+            errors[name] = e
+        seconds[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=build, args=item)
+               for item in jobs.items()]
     t0 = time.perf_counter()
-    native._load()
-    t_cc = time.perf_counter() - t0
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for name, e in errors.items():
+        raise SmokeFailure(f"building {name} failed") from e
+    print(f"phase 2: built {', '.join(jobs)} in parallel in {wall:.2f} s ("
+          + ", ".join(f"{n} {t:.2f} s" for n, t in seconds.items()) + ")")
     if rehearse:
-        print(f"phase 2: C runtime built in {t_cc:.2f} s; K1 not built "
-              "(no nvcc in a rehearsal)")
+        print("  K1, K2 and K3 not built (no nvcc in a rehearsal)")
         return
-    t0 = time.perf_counter()
-    kmeans_kernel.load_library()
-    t_nvcc = time.perf_counter() - t0
-    print(f"phase 2: K1 built by nvcc in {t_nvcc:.2f} s, C runtime in "
-          f"{t_cc:.2f} s")
     with open(_build.log_path(kmeans_kernel.NAME)) as fh:
         log = fh.read()
     entries = re.findall(
@@ -148,10 +210,18 @@ def phase_build(rehearse: bool) -> None:
     for d, smem_stats, spills, regs, smem in entries:
         if d in ("3", "5"):  # the dimensions of the two codecs
             branch = "shared" if smem_stats == "1" else "global"
-            print(f"  ptxas d={d} {branch}-memory stats: {regs} registers, "
+            print(f"  ptxas K1 d={d} {branch}-memory stats: {regs} registers, "
                   f"{smem} B static smem, {spills} B spills")
-    print(f"  all 16 instances: max {max(int(e[3]) for e in entries)} "
+    print(f"  K1, all 16 instances: max {max(int(e[3]) for e in entries)} "
           f"registers, max {max(int(e[2]) for e in entries)} B spills")
+    with open(_build.log_path(approx_rle.NAME)) as fh:
+        rle = _ptxas_entries(fh.read())
+    for label, key in (("K2", "wide_kernel"), ("K3", "batch_kernel")):
+        found = [(n, v) for n, v in rle.items() if key in n]
+        check(len(found) == 1, f"ptxas reported {len(found)} {key} entries")
+        regs, st, ld, smem = found[0][1]
+        print(f"  ptxas {label} ({key}): {regs} registers, {smem} B static "
+              f"smem, {st} B spill stores, {ld} B spill loads")
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +270,8 @@ def _synthetic_step(seed, B, d, n, k, maxv, dev, ties=False, frozen=False):
     return ops, [maxv - 1] * d
 
 
-def _time_ms(fn, iters: int, dev) -> float:
-    for _ in range(3):
+def _time_ms(fn, iters: int, dev, warmup: int = 3) -> float:
+    for _ in range(warmup):
         fn()
     if dev.type != "cuda":
         t0 = time.perf_counter()
@@ -270,6 +340,179 @@ def phase_kernel(imgs, dev, card, sz):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: K2 and K3 against their plain versions
+# ---------------------------------------------------------------------------
+
+def _chunks(scan):
+    """The chunks approx_rle_chunked gives K2 for one scan: at most 1024
+    chunks of 1024 pixels or more; (scans [S, chunk, 3], lens [S])."""
+    n = scan.shape[0]
+    chunk = 1024
+    n_chunks = -(-n // chunk)
+    if n_chunks > approx_rle.WIDE:
+        chunk = -(-n // approx_rle.WIDE)
+        n_chunks = -(-n // chunk)
+    padded = np.zeros((n_chunks * chunk, 3), np.uint8)
+    padded[:n] = scan
+    lens = np.full(n_chunks, chunk)
+    lens[-1] = n - (n_chunks - 1) * chunk
+    return padded.reshape(n_chunks, chunk, 3), lens
+
+
+def _run_then_pixel(c, t):
+    """A run of c pixels whose sums S give t = S - c*x against the pixel x
+    that follows it (tests/torch_rle_cases.py)."""
+    t = np.asarray(t)
+    q = np.floor_divide(t, c)
+    u = 128 + (q + 1) // 2
+    x = u - q
+    run = np.tile(u, (c, 1))
+    for ch in range(3):
+        run[: t[ch] - c * q[ch], ch] += 1
+    check((run.sum(0) - c * x == t).all(), "crafted run")
+    return np.concatenate([run, x[None]]).astype(np.uint8)
+
+
+def _boundary_runs(allow, rng, n):
+    """n crafted runs whose next pixel sits exactly on K3's threshold
+    (sum t^2 == (allow*c)^2), or within one unit of it, plus the f32
+    rounding cases at allow 64."""
+    out = [_run_then_pixel(c, t) for a, c, *t in K3_FMA_CASES if a == allow]
+    while len(out) < n:
+        c = int(rng.integers(3, 250))
+        lim = min(allow * c, 100 * c)
+        t01 = rng.integers(-lim, lim + 1, (4096, 2))
+        rem = (allow * c) ** 2 - (t01.astype(np.int64) ** 2).sum(1)
+        root = np.sqrt(np.maximum(rem, 0)).round().astype(np.int64)
+        hit = np.flatnonzero((rem >= 0) & (root * root == rem)
+                             & (root <= 100 * c))
+        if hit.size:
+            i = hit[0]
+            off = len(out) % 3 - 1  # on, above and below the threshold
+            out.append(_run_then_pixel(c, [t01[i, 0], t01[i, 1],
+                                           root[i] + off]))
+    return out
+
+
+def _rle_err(got, want) -> int:
+    return max(int((g.cpu().to(torch.int64) - w.cpu().to(torch.int64))
+                   .abs().max()) for g, w in zip(got, want))
+
+
+def _time_turns(kernel, plain, iters, dev):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain, one warm plain
+    run each and `iters` kernel launches each."""
+    p1 = _time_ms(plain, 1, dev, warmup=0)
+    k1 = _time_ms(kernel, iters, dev)
+    k2 = _time_ms(kernel, iters, dev)
+    p2 = _time_ms(plain, 1, dev, warmup=0)
+    return (k1, k2), (p1, p2)
+
+
+def phase_rle_kernels(imgs, dev, card, sz):
+    print("phase 3 (cont.): K2 and K3 against their plain versions (exact "
+          "equality)")
+    scans = [hilbert.linearize(im) for im in imgs]
+    full, div2k = _chunks(scans[0]), _chunks(scans[-1])
+    tie = (full[0].copy(), full[1])
+    tied = sorted({1, len(tie[1]) // 2, len(tie[1]) - 2})
+    for j in tied:
+        tie[0][j, :4] = TIE
+    cases = {"a 1024^2, allow 4": (full, 4), "b 1024^2, allow 16": (full, 16),
+             "c 2040x1356, allow 4": (div2k, 4), "d ties, allow 2": (tie, 2),
+             "e 1024^2, allow 64": (full, 64)}
+    k2_err = 0
+    for name, ((chunks, lens), allow) in cases.items():
+        rgb, ln = approx_rle._position_major(chunks, lens, dev)
+        t0 = time.perf_counter()
+        want = approx_rle.approx_rle_wide_ref(rgb, ln, allow)
+        t_ref = time.perf_counter() - t0
+        got = approx_rle.wide_records(rgb, ln, allow)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        err = _rle_err(got, want)
+        k2_err = max(k2_err, err)
+        flags = got[1].cpu()
+        forced = int(((got[0].cpu() >> 25) & 1).sum())
+        print(f"  K2 ({name}) {chunks.shape[0]} streams x {chunks.shape[1]}: "
+              f"max |err| {err}, {int(flags.sum())} flagged, {forced} "
+              f"stream-end closes (plain version {t_ref:.2f} s)")
+        check(err == 0, f"K2 differs from its plain version in {name}")
+        if name.startswith("a"):
+            k2_timed = (rgb, ln, allow)
+        if name.startswith("d"):
+            check(all(int(flags[j]) == 1 for j in tied),
+                  "a crafted tie was not flagged")
+
+    L = sz["k3_len"]
+    rng = np.random.default_rng(7)
+    k3_err = 0
+    for allow in (4, 16, 64):
+        batch = np.zeros((8, L, 3), np.uint8)
+        for j, run in enumerate(_boundary_runs(allow, rng, 8)):
+            batch[j, : len(run)] = run
+            batch[j, len(run):] = scans[j][: L - len(run)]
+        lens = np.full(8, L)
+        lens[-1] = L - 5
+        rgb, ln = approx_rle._position_major(batch, lens, dev)
+        t0 = time.perf_counter()
+        want = approx_rle.approx_rle_batch_ref(rgb, ln, float(allow))
+        t_ref = time.perf_counter() - t0
+        got = approx_rle.batch_records(rgb, ln, float(allow))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        err = _rle_err([got], [want])
+        k3_err = max(k3_err, err)
+        print(f"  K3 allow {allow}: 8 streams x {L} opening with crafted "
+              f"boundary runs: max |err| {err} (plain version {t_ref:.2f} s)")
+        check(err == 0, f"K3 differs from its plain version at allow {allow}")
+        if allow == 4:
+            k3_timed = (rgb, ln)
+
+    timings = {}
+    rgb, ln, allow = k2_timed
+    timings["K2"] = _time_turns(
+        lambda: approx_rle.wide_records(rgb, ln, allow),
+        lambda: approx_rle.approx_rle_wide_ref(rgb, ln, allow),
+        sz["iters"], dev)
+    rgb3, ln3 = k3_timed
+    timings["K3"] = _time_turns(
+        lambda: approx_rle.batch_records(rgb3, ln3, 4.0),
+        lambda: approx_rle.approx_rle_batch_ref(rgb3, ln3, 4.0),
+        sz["iters"], dev)
+    for name, shape in (("K2", f"{rgb.shape[1]} x {rgb.shape[0]}"),
+                        ("K3", f"8 x {L}")):
+        (k1, k2), (p1, p2) = timings[name]
+        print(f"  time {name} ({shape}) on {card}: kernel {k1:.4f} / "
+              f"{k2:.4f} ms per launch, plain version {p1:.1f} / {p2:.1f} ms "
+              f"(plain, kernel, kernel, plain)")
+    big = np.stack(scans[:8])
+    rgb8, ln8 = approx_rle._position_major(big, [big.shape[1]] * 8, dev)
+    t_big = _time_ms(lambda: approx_rle.batch_records(rgb8, ln8, 4.0), 3, dev,
+                     warmup=1)
+    print(f"  time K3 alone (8 x {big.shape[1]}, the gated batch of phase 4) "
+          f"on {card}: {t_big:.3f} ms per launch")
+    # where a gated encode's time goes: the whole host-side route against the
+    # exact-f64 host engine on the same scans (host clock)
+    t0 = time.perf_counter()
+    for sc in scans[:8]:
+        native.approx_rle_encode(sc, 4.0)
+    t_native = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    approx_rle.approx_rle_batch(big, [big.shape[1]] * 8, 4.0, device=dev)
+    t_batch = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for sc in scans[:8]:
+        approx_rle.approx_rle_chunked(sc, 4, device=dev)
+    t_chunked = (time.perf_counter() - t0) * 1e3
+    print(f"  8 scans of {big.shape[1]} px at allow 4: native engine "
+          f"{t_native:.1f} ms, approx_rle_batch (K3 route) {t_batch:.1f} ms, "
+          f"approx_rle_chunked (K2 route) {t_chunked:.1f} ms")
+    return {"K2": (k2_err, timings["K2"]), "K3": (k3_err, timings["K3"]),
+            "K3 8x1024^2 ms": t_big}
+
+
+# ---------------------------------------------------------------------------
 # phase 4 and 5
 # ---------------------------------------------------------------------------
 
@@ -303,48 +546,98 @@ def run_codec(spec, paths, dev, out_dir):
     return codec, res, rec
 
 
+def _measured(spec, paths, dev, card, out_dir):
+    """One runner.measure_all run of `spec`, checked and printed."""
+    codec, res, rec = run_codec(spec, paths, dev, out_dir)
+    check(res.failures == [], f"{spec}: failures {res.failures}")
+    check(len(res.rows) == len(paths), f"{spec}: {len(res.rows)} rows")
+    with open(os.path.join(out_dir, f"{codec.name}.csv")) as fh:
+        n_csv = len(fh.read().splitlines()) - 1
+    check(n_csv == len(paths), f"{spec}: {n_csv} CSV rows")
+    check(rec["fallbacks"] == 0,
+          f"{spec}: the runner fell back to per-image decode")
+    check(all(math.isfinite(r[3]) and r[1] > 0 for r in res.rows),
+          f"{spec}: a row is not finite")
+    check(len(rec["blobs"]) == len(paths), f"{spec}: streams not recorded")
+    if codec.is_lossless:
+        check(all(r[3] == 0.0 for r in res.rows), f"{spec}: lossy rows")
+    if isinstance(codec, VoronoiCluster):
+        check(rec["fused_calls"] > 0, "the fused voronoi decode never ran")
+        check(rec["fused_mses"] == [r[3] for r in res.rows],
+              "fused MSEs differ from the CSV rows")
+    dec_mps = res.megapixels / res.decode_s if res.decode_s else 0.0
+    gate = ",".join(g for g in GATES if os.environ.get(g) == "1") or "no gate"
+    print(f"  {spec} ({gate}) on {card}: encode {res.encode_mps:.3f} MP/s, "
+          f"decode {dec_mps:.3f} MP/s ({res.megapixels:.3f} MP); mean ratio "
+          f"{res.mean_ratio:.4f}%, mean MSE {res.mean_error:.4f}; fused "
+          f"decode calls {rec['fused_calls']}, fallbacks {rec['fallbacks']}")
+    return codec, res, rec
+
+
+@contextlib.contextmanager
+def gate(name):
+    """Set one of the Hilbert codec's env gates for the duration."""
+    old = os.environ.get(name)
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
 def phase_main_path(imgs, paths, dev, card, out_dir):
-    print("phase 4: the main path, runner.measure_all(from_spec(spec, "
+    print("phase 4: the main paths, runner.measure_all(from_spec(spec, "
           f"device={dev.type!r}), {len(paths)} PNGs, batch=8)")
-    kmeans_kernel.assign_stats.launches = 0
     runs = {}
+    kmeans_kernel.assign_stats.launches = 0
     for spec in SPECS:
-        codec, res, rec = run_codec(spec, paths, dev, out_dir)
-        check(res.failures == [], f"{spec}: failures {res.failures}")
-        check(len(res.rows) == len(paths), f"{spec}: {len(res.rows)} rows")
-        with open(os.path.join(out_dir, f"{codec.name}.csv")) as fh:
-            n_csv = len(fh.read().splitlines()) - 1
-        check(n_csv == len(paths), f"{spec}: {n_csv} CSV rows")
-        check(rec["fallbacks"] == 0,
-              f"{spec}: the runner fell back to per-image decode")
-        check(all(math.isfinite(r[3]) and r[1] > 0 for r in res.rows),
-              f"{spec}: a row is not finite")
-        if isinstance(codec, VoronoiCluster):
-            check(rec["fused_calls"] > 0, "the fused voronoi decode never ran")
-            check(rec["fused_mses"] == [r[3] for r in res.rows],
-                  "fused MSEs differ from the CSV rows")
-        dec_mps = res.megapixels / res.decode_s if res.decode_s else 0.0
-        print(f"  {spec} on {card}: encode {res.encode_mps:.3f} MP/s, decode "
-              f"{dec_mps:.3f} MP/s ({res.megapixels:.3f} MP); mean ratio "
-              f"{res.mean_ratio:.4f}%, mean MSE {res.mean_error:.4f}; fused "
-              f"decode calls {rec['fused_calls']}, fallbacks {rec['fallbacks']}")
-        runs[spec] = (codec, res, rec)
-    launches = kmeans_kernel.assign_stats.launches
-    print(f"  K1 launches over the main path: {launches}")
+        runs[spec] = _measured(spec, paths, dev, card, out_dir)
+    launches = {"K1": kmeans_kernel.assign_stats.launches}
+    print(f"  K1 launches over the k-means path: {launches['K1']}")
+
+    for spec in HILBERT_SPECS:
+        runs[spec] = _measured(spec, paths, dev, card, out_dir)
+    for name, counter in (("K2", approx_rle.wide_records),
+                          ("K3", approx_rle.batch_records)):
+        gate_name = GATES[0] if name == "K2" else GATES[1]
+        counter.launches = 0
+        with gate(gate_name):
+            runs[(GATED, gate_name)] = _measured(
+                GATED, paths, dev, card, f"{out_dir}_{gate_name.lower()}")
+        launches[name] = counter.launches
+        print(f"  {name} launches over {GATED} under {gate_name}=1: "
+              f"{launches[name]}")
+    chunked = runs[(GATED, GATES[0])][2]["blobs"]
+    check(chunked == runs[GATED][2]["blobs"],
+          f"{GATED}: the chunked route's streams differ from the ungated ones")
+    print(f"  {GATED}: the {len(chunked)} streams of the chunked route equal "
+          "the ungated streams byte for byte")
     if dev.type == "cuda":
-        check(launches > 0, "K1 never launched on the main path")
+        for name, n in launches.items():
+            check(n > 0, f"{name} never launched on its main path")
     return runs, launches
 
 
 def phase_card_vs_cpu(imgs, runs, dev, crop):
     print(f"phase 5: {dev.type} against the CPU path")
     crops = [np.ascontiguousarray(im[:crop, :crop]) for im in imgs[:2]]
-    for spec in SPECS:
-        on_dev = from_spec(spec, device=dev.type).encode_batch(crops)
-        on_cpu = from_spec(spec, device="cpu").encode_batch(crops)
-        check(on_dev == on_cpu, f"{spec}: {dev.type} and CPU streams differ")
-        print(f"  {spec}: {len(crops)} crops of {crop}^2, identical streams "
-              f"({[len(s) for s in on_dev]} B)")
+    for spec, gate_name in [(s, None) for s in SPECS] + [(GATED, g)
+                                                        for g in GATES]:
+        with gate(gate_name) if gate_name else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            on_dev = from_spec(spec, device=dev.type).encode_batch(crops)
+            t1 = time.perf_counter()
+            on_cpu = from_spec(spec, device="cpu").encode_batch(crops)
+            t2 = time.perf_counter()
+        check(on_dev == on_cpu, f"{spec} ({gate_name}): {dev.type} and CPU "
+              "streams differ")
+        print(f"  {spec}{f' under {gate_name}=1' if gate_name else ''}: "
+              f"{len(crops)} crops of {crop}^2, identical streams "
+              f"({[len(s) for s in on_dev]} B; {dev.type} {t1 - t0:.2f} s, "
+              f"CPU {t2 - t1:.2f} s)")
     _, res, rec = runs["voronoi(128)"]
     cpu = VoronoiCluster(128, device="cpu")
     cpu_mses = [runner.compute_error(im, cpu.decode(b))
@@ -369,6 +662,7 @@ def main() -> int:
     imgs = [synth_image(rng, sz["side"], sz["side"]) for _ in range(8)]
     imgs.append(synth_image(rng, *sz["div2k"]))
     max_err, timings = phase_kernel(imgs, dev, card, sz)
+    rle = phase_rle_kernels(imgs, dev, card, sz)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = []
@@ -385,11 +679,20 @@ def main() -> int:
     else:
         print(card)
     (ms, plain_ms), (ms_b, plain_ms_b) = timings["a"], timings["b"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "kmeans_assign_stats", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms,
-        "ms_cluster_colors": ms_b, "plain_ms_cluster_colors": plain_ms_b}]}))
+        "replaces": K1_REPLACES, "launches": launches["K1"],
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "ms_cluster_colors": ms_b, "plain_ms_cluster_colors": plain_ms_b}]
+    for name, fn, replaces in (("K2", "approx_rle_wide", K2_REPLACES),
+                               ("K3", "approx_rle_batch", K3_REPLACES)):
+        err, (k_ms, p_ms) = rle[name]
+        kernels.append({
+            "name": fn, "route": "cuda", "source": RLE_SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2})
+    kernels[-1]["ms_8x1024x1024"] = rle["K3 8x1024^2 ms"]
+    print(json.dumps({"kernels": kernels}))
     if dev.type == "cuda":
         kind, count, platform = (torch.cuda.get_device_name(0),
                                  torch.cuda.device_count(), "gpu")

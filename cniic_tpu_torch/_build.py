@@ -29,6 +29,7 @@ REPO_ROOT = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 _lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -69,8 +70,11 @@ def _compile(name: str, sources, commands) -> None:
 
 def load(name: str, sources, commands) -> ctypes.CDLL:
     """Build `lib<name>.so` from `sources` if it is missing or stale, then
-    load it (once per process)."""
+    load it (once per process). Different libraries build concurrently when
+    loaded from different threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
             if _stale(lib_path(name), sources):

@@ -2,23 +2,75 @@
 
     python -m cniic_tpu_torch --codec=<spec> [--device cuda|cpu]
                               [--batch=N] [--resume] <img files...>
+    python -m cniic_tpu_torch --special=hilbert <img files...>
 
 The device defaults to cuda; with no card the run is refused rather than
 moved to the CPU (pass ``--device cpu`` for the plain CPU path).
-``--special=hilbert`` is not ported yet and raises.
+``--special`` is tried first, then ``--codec`` (main.rs:17-21). The hilbert
+special runs on the host: it dumps three CSVs per image (rect/small/large
+traversals, main.rs:31-49) under ``output/``; the header is
+``red,blue,green`` — the reference's exact (mislabeled) header — while the
+values are r,g,b.
 """
 
 from __future__ import annotations
 
+import csv
+import os
 import sys
 
-from . import runner
-from .codecs import PORTED, from_spec
+from . import hilbert, image_io, runner
+from .codecs import from_spec
 
 USAGE = """Usage: python -m cniic_tpu_torch --codec=<codec> [--device cuda|cpu] [--batch=N] [--resume] [<img file>..]
+       python -m cniic_tpu_torch --special=hilbert [<img file>..]
 Available codecs (ported so far):
+  hilbert(rle) | hilbert(rle(<d>)) | hilbert(zip)
   cluster-colors(<n>) | ccol(<n>)
   voronoi(<n>)"""
+
+
+def _next_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
+def _under_output(path: str, new_ext: str, output_dir: str = "output") -> str:
+    base = os.path.basename(path)
+    stem = os.path.splitext(base)[0]
+    return os.path.join(output_dir, stem + "." + new_ext)
+
+
+def _special_hilbert(paths) -> None:
+    os.makedirs("output", exist_ok=True)
+    for p in paths:
+        img = image_io.load_image(p)
+        h, w = img.shape[:2]
+
+        def dump(coords, suffix):
+            out = _under_output(p, f"{suffix}.hilbert.csv")
+            with open(out, "w", newline="") as fh:
+                cw = csv.writer(fh)
+                cw.writerow(["red", "blue", "green"])  # reference header (main.rs:38)
+                for x, y in coords:
+                    px = img[y, x]
+                    cw.writerow([px[0], px[1], px[2]])
+
+        dump(hilbert.scan_coords(w, h), "rect")
+
+        # "largest inscribed" power-of-two square, replicating the
+        # reference's exact formula `next_power_of_two() >> 1`
+        # (hilbert.rs:18) — including its quirk that an exactly
+        # power-of-two dimension is HALVED (w=512 -> 256), since Rust's
+        # next_power_of_two(512) == 512.
+        so = min(_next_pow2(w) >> 1, _next_pow2(h) >> 1)
+        # a dimension of 1 gives side 0: the reference's iterator is simply
+        # empty there — emit a header-only CSV
+        dump(hilbert.scan_coords(so, so) if so > 0 else [], "small")
+
+        # smallest covering square, out-of-bounds filtered (hilbert.rs:25-32)
+        so = max(_next_pow2(w), _next_pow2(h))
+        coords = hilbert.scan_coords(so, so)
+        dump(((x, y) for x, y in coords if x < w and y < h), "large")
 
 
 def main(argv=None) -> int:
@@ -27,9 +79,12 @@ def main(argv=None) -> int:
         print(USAGE, file=sys.stderr)
         return 1
     if argv[0].startswith("--special="):
-        raise NotImplementedError(
-            f"{argv[0]} is not ported yet to cniic_tpu_torch "
-            f"(ported: --codec= with {', '.join(PORTED)})")
+        special = argv[0][len("--special="):]
+        if special != "hilbert":
+            print(f"Invalid special command: {special!r}", file=sys.stderr)
+            return 1
+        _special_hilbert(argv[1:])
+        return 0
 
     batch = 1
     resume = False

@@ -1,8 +1,11 @@
 """ctypes bindings to the host C runtime (``cniic_tpu/native/cniic_native.c``).
 
 Copy of the loader in ``cniic_tpu/native/__init__.py``, cut to the entry
-points the k-means codecs reach (histograms, Huffman tree and bit packing,
-Rgb framing, gathers, the MSE sum). The C source is the reference's one
+points the ported codecs reach: for the k-means codecs the histograms,
+Huffman tree and bit packing, Rgb framing, gathers and the MSE sum; for the
+Hilbert family the curve generator, the row gathers and scatters, the RLE
+framing and fused decode, zip-dict and the exact-f64 approximate-RLE
+engine. The C source is the reference's one
 file, compiled by path into this package's ``_build/`` directory (never next
 to the JAX package's own library) and rebuilt whenever the source is newer.
 All entry points release the GIL for the duration of the call (plain ctypes
@@ -48,10 +51,36 @@ def _load() -> ctypes.CDLL:
     u32p = ctypes.POINTER(ctypes.c_uint32)
     u64p = ctypes.POINTER(ctypes.c_uint64)
 
+    lib.gilbert_curve.argtypes = [i64, i64, i32p]
+    lib.gilbert_curve.restype = ctypes.c_int
+
     lib.huf_decode.argtypes = [u8p, i64, i32p, i32p, i32p, i64, ctypes.c_int32, i64, i32p]
     lib.huf_decode.restype = i64
     lib.huf_decode_fast.argtypes = lib.huf_decode.argtypes
     lib.huf_decode_fast.restype = i64
+    lib.zip_dict_encode.argtypes = [u8p, i64, ctypes.POINTER(u8p),
+                                    ctypes.POINTER(i64)]
+    lib.zip_dict_encode.restype = ctypes.c_int
+    lib.zip_dict_decode.argtypes = [u8p, i64, ctypes.POINTER(u8p),
+                                    ctypes.POINTER(i64), i64]
+    lib.zip_dict_decode.restype = ctypes.c_int
+
+    lib.approx_rle_encode.argtypes = [u8p, i64, ctypes.c_double, u8p, u8p]
+    lib.approx_rle_encode.restype = i64
+
+    lib.gather_rgb.argtypes = [u8p, i64p, i64, u8p]
+    lib.gather_rgb.restype = None
+    lib.scatter_rgb.argtypes = [u8p, i64p, i64, u8p]
+    lib.scatter_rgb.restype = None
+    lib.rle_frame.argtypes = [u8p, i64, u8p]
+    lib.rle_frame.restype = i64
+    lib.rle_frame_gather.argtypes = [u8p, i64p, i64, u8p]
+    lib.rle_frame_gather.restype = i64
+    lib.rle_records_frame.argtypes = [u8p, u8p, i64, u8p]
+    lib.rle_records_frame.restype = None
+    lib.rle_unframe_scatter.argtypes = [u8p, i64, i64p, i64, u8p]
+    lib.rle_unframe_scatter.restype = ctypes.c_int
+
     lib.rgb_frame.argtypes = [u8p, i64, u8p]
     lib.rgb_frame.restype = None
     lib.rgb_unframe.argtypes = [u8p, i64, u8p]
@@ -79,6 +108,9 @@ def _load() -> ctypes.CDLL:
     lib.mse_sum_u8.argtypes = [u8p, u8p, i64]
     lib.mse_sum_u8.restype = ctypes.c_uint64
 
+    lib.cniic_buf_free.argtypes = [u8p]
+    lib.cniic_buf_free.restype = None
+
     _lib = lib
     return lib
 
@@ -89,6 +121,20 @@ def _as_u8p(arr: np.ndarray):
 
 def _as_i32p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _as_i64p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def gilbert_curve(w: int, h: int) -> np.ndarray:
+    """(w*h, 2) int32 array of (x, y) coordinates of the scan."""
+    lib = _load()
+    out = np.empty((w * h, 2), dtype=np.int32)
+    rc = lib.gilbert_curve(w, h, _as_i32p(out))
+    if rc != 0:
+        raise RuntimeError(f"gilbert_curve failed: {rc}")
+    return out
 
 
 def mse_sum_u8(a: np.ndarray, b: np.ndarray) -> int:
@@ -298,3 +344,136 @@ def huf_tree_parse(data, leaf_size: int):
     # on success: the tables are exact-size, no trailing slack to trim
     assert n == max_nodes, (n, max_nodes)
     return (left, right, symbol, payloads, int(n), int(consumed.value))
+
+
+def rle_unframe_scatter(recs: np.ndarray, perm: np.ndarray) -> np.ndarray:
+    """Fused RLE decode: validate 12-byte records, expand runs and scatter
+    through perm into a (len(perm), 3) uint8 image in one C pass. Raises on
+    corrupt prefixes or short streams."""
+    lib = _load()
+    recs = np.ascontiguousarray(recs, dtype=np.uint8)
+    if recs.size % 12:
+        raise ValueError("RLE stream is not a whole number of records")
+    perm = np.ascontiguousarray(perm, dtype=np.int64)
+    out = np.empty((perm.size, 3), dtype=np.uint8)
+    rc = lib.rle_unframe_scatter(_as_u8p(recs), recs.size // 12,
+                                 _as_i64p(perm), perm.size, _as_u8p(out))
+    if rc == -1:
+        raise ValueError("corrupt Rgb prefix in RLE record")
+    if rc == -2:
+        raise ValueError("RLE stream too short")
+    return out
+
+
+# absolute wire-format maximum any legitimate zipc stream decodes to:
+# 8 dim bytes + 11 bytes/pixel at the framework's 2^27-pixel cap. A
+# crafted LZ78 stream can otherwise demand unbounded output from a few
+# hundred input bytes.
+_ZIP_MAX_OUT = 8 + 11 * (1 << 27)
+
+
+def _roundtrip_call(name: str, data, max_out: int | None = None) -> bytes:
+    lib = _load()
+    arr = (np.frombuffer(bytes(data), dtype=np.uint8)
+           if not isinstance(data, np.ndarray)
+           else np.ascontiguousarray(data, dtype=np.uint8))
+    out_p = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_int64()
+    args = [_as_u8p(arr), arr.size, ctypes.byref(out_p),
+            ctypes.byref(out_len)]
+    if max_out is not None:
+        args.append(int(max_out))
+    rc = getattr(lib, name)(*args)
+    if rc == -2:
+        raise ValueError(f"{name}: decoded stream exceeds the "
+                         f"{max_out}-byte cap")
+    if rc != 0:
+        raise ValueError(f"{name} failed ({rc})")
+    try:
+        return ctypes.string_at(out_p, out_len.value)
+    finally:
+        lib.cniic_buf_free(out_p)
+
+
+def zip_dict_encode(data) -> bytes:
+    return _roundtrip_call("zip_dict_encode", data)
+
+
+def zip_dict_decode(data, max_out: int = _ZIP_MAX_OUT) -> bytes:
+    return _roundtrip_call("zip_dict_decode", data, max_out)
+
+
+def gather_rgb(rgb: np.ndarray, perm: np.ndarray) -> np.ndarray:
+    """out[i] = rgb[perm[i]] over (N, 3) uint8 rows (int64 indices)."""
+    lib = _load()
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8).reshape(-1, 3)
+    perm = np.ascontiguousarray(perm, dtype=np.int64)
+    out = np.empty((perm.size, 3), dtype=np.uint8)
+    lib.gather_rgb(_as_u8p(rgb), _as_i64p(perm), perm.size, _as_u8p(out))
+    return out
+
+
+def scatter_rgb(rgb: np.ndarray, perm: np.ndarray, n_out: int) -> np.ndarray:
+    """out[perm[i]] = rgb[i] over (N, 3) uint8 rows (int64 indices)."""
+    lib = _load()
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8).reshape(-1, 3)
+    perm = np.ascontiguousarray(perm, dtype=np.int64)
+    out = np.empty((n_out, 3), dtype=np.uint8)
+    lib.scatter_rgb(_as_u8p(rgb), _as_i64p(perm), perm.size, _as_u8p(out))
+    return out
+
+
+def rle_frame(rgb: np.ndarray) -> bytes:
+    """(N, 3) uint8 -> exact-RLE 12-byte records (count + 11-byte Rgb)."""
+    lib = _load()
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8).reshape(-1, 3)
+    out = np.empty(rgb.shape[0] * 12, dtype=np.uint8)
+    nbytes = lib.rle_frame(_as_u8p(rgb), rgb.shape[0], _as_u8p(out))
+    return out[:nbytes].tobytes()
+
+
+def rle_frame_gather(rgb: np.ndarray, perm: np.ndarray,
+                     prefix: bytes = b"") -> bytes:
+    """Exact-RLE records over rgb[perm[i]] in one fused sweep (identical
+    bytes to rle_frame(gather_rgb(rgb, perm))); `prefix` (e.g. the dims
+    header) is written in front of the records so the caller skips a
+    whole-payload concat copy."""
+    lib = _load()
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8).reshape(-1, 3)
+    perm = np.ascontiguousarray(perm, dtype=np.int64)
+    if perm.size and (rgb.shape[0] == 0 or int(perm.max()) >= rgb.shape[0]
+                      or int(perm.min()) < 0):
+        raise ValueError("perm indices out of range")
+    p = len(prefix)
+    out = np.empty(p + perm.size * 12, dtype=np.uint8)
+    if p:
+        out[:p] = np.frombuffer(prefix, dtype=np.uint8)
+    nbytes = lib.rle_frame_gather(_as_u8p(rgb), _as_i64p(perm), perm.size,
+                                  _as_u8p(out[p:]))
+    return out[: p + nbytes].tobytes()
+
+
+def rle_records_frame(counts: np.ndarray, colors: np.ndarray) -> bytes:
+    """(R,) u8 counts + (R, 3) u8 colors -> R x 12-byte RLE records."""
+    lib = _load()
+    counts = np.ascontiguousarray(counts, dtype=np.uint8)
+    colors = np.ascontiguousarray(colors, dtype=np.uint8).reshape(-1, 3)
+    if counts.size != colors.shape[0]:
+        raise ValueError("counts/colors record mismatch")
+    out = np.empty(counts.size * 12, dtype=np.uint8)
+    lib.rle_records_frame(_as_u8p(counts), _as_u8p(colors), counts.size,
+                          _as_u8p(out))
+    return out.tobytes()
+
+
+def approx_rle_encode(rgb: np.ndarray, allow: float):
+    """(counts uint8[R], colors uint8[R,3]) for the running-average RLE
+    (the exact-f64 engine)."""
+    lib = _load()
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8).reshape(-1, 3)
+    n = rgb.shape[0]
+    counts = np.empty(n, dtype=np.uint8)
+    colors = np.empty((n, 3), dtype=np.uint8)
+    nrec = lib.approx_rle_encode(_as_u8p(rgb), n, float(allow),
+                                 _as_u8p(counts), _as_u8p(colors))
+    return counts[:nrec].copy(), colors[:nrec].copy()

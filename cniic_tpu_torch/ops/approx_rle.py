@@ -1,0 +1,472 @@
+"""K2 and K3: approximate RLE of many streams, CUDA kernels, plain versions
+and the entry points of the Hilbert codec's two device routes.
+
+Port of ``cniic_tpu/ops/approx_rle.py``. The recurrence is the reference's
+running-average RLE (hilbertc.rs:200-285): strictly sequential within a
+stream, independent across streams. Both kernels are CUDA C++ for
+``sm_90a`` in ``csrc/approx_rle.cu`` (one thread per stream), built with
+nvcc on first use into ``_build/`` and called through plain C launchers
+with ctypes; the source note says what bounds them on the card.
+
+* **K2**, ``wide_records`` (replaces ``cniic_tpu/ops/approx_rle.py::
+  _wkernel``): up to 1024 streams in exact int32 arithmetic, records with
+  bit 24 (run ended at the previous position) and bit 25 (closed by the
+  stream's end), and a per-stream flag on a boundary tie the exact
+  arithmetic cannot decide as the reference's f64 does. Integer ``allow``
+  <= 64 only (the 16384 clamp keeps every decision only there).
+* **K3**, ``batch_records`` (replaces ``cniic_tpu/ops/approx_rle.py::
+  _kernel``): the same recurrence in the TPU kernel's f32 count²-scaled
+  form, records ``1<<24 | rgb``, no flag. It may differ from the f64 engine
+  within ~1e-4·allow of the boundary; its parity target is the TPU kernel.
+
+Each wrapper takes position-major tensors (``rgb`` int32 [L, S] packed
+0x00RRGGBB, ``lens`` int32 [S]) and returns ``recs`` int32 [L+1, S] (and
+K2's ``flags`` int32 [S]). It checks its inputs, launches its kernel for
+CUDA tensors (raising if the launch fails) or runs its plain version
+(``approx_rle_wide_ref``, ``approx_rle_batch_ref``) for CPU tensors, and
+never moves from one to the other. ``<wrapper>.launches`` counts launches.
+
+The entry points keep the JAX signatures and return values, with an explicit
+``device`` in place of ``interpret``: ``approx_rle_batch`` (K3),
+``approx_rle_wide`` (K2) and ``approx_rle_chunked``, the byte-exact
+single-stream encode over ~1024 speculative chunks with the seam stitcher
+that replays windows through the exact-f64 native engine.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import numpy as np
+import torch
+
+from .. import _build, resolve_device
+
+SOURCE = os.path.join(_build.PKG_DIR, "csrc", "approx_rle.cu")
+NAME = "approx_rle"
+
+WIDE = 1024              # streams per K2 call (the chunk stitcher's bound)
+MAX_WIDE_ALLOW = 64      # K2's clamp keeps decisions only up to here
+MAX_BATCH_LEN = 1 << 24  # K3's f32 positions are exact up to here
+RUN_CAP = 255
+ICL = 16384
+REC = 1 << 24            # a record: a run ended at the previous position
+LAST = 1 << 25           # K2: the run was closed by the stream's end
+
+_count_lock = threading.Lock()
+
+
+def _commands():
+    return [[_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-o", "{out}", SOURCE]]
+
+
+_lib = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if stale) and load the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = _build.load(NAME, [SOURCE], _commands())
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.approx_rle_wide.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    lib.approx_rle_wide.restype = ci
+    lib.approx_rle_batch.argtypes = [vp] * 3 + [ci] * 2 + [ctypes.c_float, vp]
+    lib.approx_rle_batch.restype = ci
+    lib.approx_rle_error_string.argtypes = [ci]
+    lib.approx_rle_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def _check(rgb, lens) -> None:
+    if rgb.dim() != 2:
+        raise ValueError(f"rgb must be [L, streams], got {tuple(rgb.shape)}")
+    L, S = rgb.shape
+    if tuple(lens.shape) != (S,):
+        raise ValueError(f"lens must have shape ({S},), got {tuple(lens.shape)}")
+    for name, t in (("rgb", rgb), ("lens", lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if lens.device != rgb.device:
+        raise ValueError(f"lens is on {lens.device}, rgb on {rgb.device}")
+    if rgb.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"runs on cuda or cpu tensors, not {rgb.device}")
+    if S and (int(lens.min()) < 0 or int(lens.max()) > L):
+        raise ValueError(f"stream lengths must lie in [0, {L}]")
+
+
+def _raise_launch(lib, fn: str, rc: int, shape) -> None:
+    msg = lib.approx_rle_error_string(rc).decode()
+    raise RuntimeError(f"{fn} launch failed (L, streams = {tuple(shape)}): "
+                       f"CUDA error {rc}: {msg}")
+
+
+def wide_records(rgb, lens, allow: int):
+    """K2 over position-major streams: (recs int32 [L+1, S], flags int32
+    [S]). `allow` must be an integer in [0, 64]."""
+    _check(rgb, lens)
+    L, S = rgb.shape
+    if S > WIDE:
+        raise ValueError(f"K2 takes at most {WIDE} streams, got {S}")
+    if int(allow) != allow or not 0 <= allow <= MAX_WIDE_ALLOW:
+        raise ValueError(f"K2 needs an integer allow in [0, {MAX_WIDE_ALLOW}],"
+                         f" got {allow!r}")
+    allow = int(allow)
+    if rgb.device.type == "cpu":
+        return approx_rle_wide_ref(rgb, lens, allow)
+    lib = load_library()
+    dev = rgb.device
+    out = torch.empty((L + 1, S), dtype=torch.int32, device=dev)
+    flags = torch.empty((S,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.approx_rle_wide(
+            rgb.data_ptr(), lens.data_ptr(), out.data_ptr(), flags.data_ptr(),
+            S, L, allow, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        _raise_launch(lib, "approx_rle_wide", rc, rgb.shape)
+    with _count_lock:
+        wide_records.launches += 1
+    return out, flags
+
+
+wide_records.launches = 0
+
+
+def batch_records(rgb, lens, allow: float):
+    """K3 over position-major streams: recs int32 [L+1, B]. `allow` is
+    taken as f32, as the TPU kernel takes it."""
+    _check(rgb, lens)
+    L, B = rgb.shape
+    if L > MAX_BATCH_LEN:
+        raise ValueError(
+            f"K3 counts positions as the TPU kernel's f32 does, exact only up"
+            f" to {MAX_BATCH_LEN} pixels; got streams of {L}")
+    allow = float(np.float32(allow))
+    if rgb.device.type == "cpu":
+        return approx_rle_batch_ref(rgb, lens, allow)
+    lib = load_library()
+    dev = rgb.device
+    out = torch.empty((L + 1, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.approx_rle_batch(
+            rgb.data_ptr(), lens.data_ptr(), out.data_ptr(), B, L, allow,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        _raise_launch(lib, "approx_rle_batch", rc, rgb.shape)
+    with _count_lock:
+        batch_records.launches += 1
+    return out
+
+
+batch_records.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions: vectorised across streams, a loop over positions
+# ---------------------------------------------------------------------------
+
+def _channels(rgb):
+    """[L, S] packed int32 -> [L, 3, S] int32 channels."""
+    return torch.stack([(rgb >> 16) & 0xFF, (rgb >> 8) & 0xFF, rgb & 0xFF],
+                       dim=1)
+
+
+def _pack3(q):
+    return (q[0] << 16) | (q[1] << 8) | q[2]
+
+
+def _round_avg(s, n):
+    """round(s / n) half up per channel ([3, S] over [S], n >= 1 where
+    used) and whether each s / n is exact in f64 (n divides 128 * r)."""
+    n = n.clamp_min(1)
+    q = torch.div(s, n, rounding_mode="floor")
+    r = s - q * n
+    return q + (2 * r >= n).to(torch.int32), ((r << 7) % n) == 0
+
+
+def approx_rle_wide_ref(rgb, lens, allow: int):
+    """The plain PyTorch version of K2 (any device)."""
+    L, S = rgb.shape
+    dev = rgb.device
+    x_all = _channels(rgb)
+    zero3 = torch.zeros((3, S), dtype=torch.int32, device=dev)
+    zero = torch.zeros((S,), dtype=torch.int32, device=dev)
+    out = torch.zeros((L + 1, S), dtype=torch.int32, device=dev)
+    s, c, pend = zero3, zero, zero
+    flags = torch.zeros((S,), dtype=torch.bool, device=dev)
+    for pos in range(L + 1):
+        x = x_all[pos] if pos < L else zero3
+        active = lens > pos
+        fresh = c == 0
+        t = (s - c * x).abs().clamp_max(ICL)
+        dist2 = (t * t).sum(0, dtype=torch.int32)
+        thresh = (allow * c) * (allow * c)
+        accept = ~fresh & (dist2 <= thresh)
+        live = active & ~fresh
+        q, exact = _round_avg(s, c)
+        out[pos] = torch.where(live & ~accept, REC | _pack3(q), pend)
+        flags |= live & (dist2 == thresh) & ~exact.all(0)
+        ns = torch.where(accept, s + x, x)
+        nc = torch.where(accept, c + 1, 1)
+        capped = nc >= RUN_CAP
+        last = active & (lens - 1 <= pos)
+        close = active & (capped | last)
+        p, _ = _round_avg(ns, nc)
+        close_rec = (REC | (last & ~capped).to(torch.int32) * LAST
+                     | _pack3(p))
+        pend = torch.where(close, close_rec, 0)
+        keep = active & ~close
+        s = torch.where(keep, ns, 0)
+        c = torch.where(keep, nc, 0)
+    return out, flags.to(torch.int32)
+
+
+def approx_rle_batch_ref(rgb, lens, allow: float):
+    """The plain PyTorch version of K3 (any device).
+
+    The distance sum is formed as fma(t2, t2, fma(t0, t0, t1 * t1)) in f32,
+    the TPU kernel's form under XLA: each step is taken exactly in float64
+    (the terms are integers below 2^33, so every f64 sum and product is
+    exact) and rounded once to float32, which is what a fused multiply-add
+    does."""
+    L, B = rgb.shape
+    dev = rgb.device
+    f32, f64 = torch.float32, torch.float64
+    x_all = _channels(rgb).to(f32)
+    allow_t = torch.tensor(allow, dtype=f32, device=dev)
+    zero3 = torch.zeros((3, B), dtype=f32, device=dev)
+    zero = torch.zeros((B,), dtype=f32, device=dev)
+    out = torch.zeros((L + 1, B), dtype=torch.int32, device=dev)
+    s, c = zero3, zero
+    pend = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def pack_avg(sums, n):
+        inv = torch.reciprocal(n.clamp_min(1.0))
+        return REC | _pack3((sums * inv + 0.5).to(torch.int32))
+
+    for pos in range(L + 1):
+        x = x_all[pos] if pos < L else zero3
+        active = lens > pos
+        fresh = c == 0
+        t = (s - c * x).to(f64)
+        sq = t * t
+        dist2 = (sq[0] + sq[1].to(f32).to(f64)).to(f32).to(f64)
+        dist2 = (sq[2] + dist2).to(f32)
+        ac = allow_t * c
+        accept = ~fresh & (dist2 <= ac * ac)
+        out[pos] = torch.where(active & ~fresh & ~accept, pack_avg(s, c), pend)
+        ns = torch.where(accept, s + x, x)
+        nc = torch.where(accept, c + 1, 1.0)
+        capped = nc >= RUN_CAP
+        close = active & (capped | (lens - 1 <= pos))
+        pend = torch.where(close, pack_avg(ns, nc), 0)
+        keep = active & ~close
+        s = torch.where(keep, ns, 0.0)
+        c = torch.where(keep, nc, 0.0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# entry points (the JAX package's functions of the same names)
+# ---------------------------------------------------------------------------
+
+def _position_major(scans, lengths, dev):
+    """(B, L, 3) uint8 scans -> (rgb int32 [L, B] packed, lens int32 [B])
+    on `dev`. The bytes go up as they are; packing and the transpose run
+    on `dev`."""
+    ch = torch.from_numpy(scans).to(dev).to(torch.int32)
+    rgb = ((ch[..., 0] << 16) | (ch[..., 1] << 8) | ch[..., 2]).t().contiguous()
+    lens = torch.from_numpy(np.asarray(lengths, np.int32).copy()).to(dev)
+    return rgb, lens
+
+
+def _stream_major(recs):
+    """[L+1, S] records on any device -> host int32 [S, L+1], each
+    stream's column contiguous."""
+    return recs.t().contiguous().cpu().numpy()
+
+
+def _runs(col):
+    """(counts u8, colors u8 [R, 3], ends) of one stream's record column."""
+    ends = np.flatnonzero(col >> 24)  # record at p => run ended at p-1
+    counts = np.diff(np.concatenate([[0], ends])).astype(np.uint8)
+    vals = col[ends]
+    colors = np.stack([(vals >> 16) & 0xFF, (vals >> 8) & 0xFF, vals & 0xFF],
+                      axis=1).astype(np.uint8)
+    return counts, colors, ends
+
+
+def approx_rle_batch(scans, lengths, allow: float, device="cuda"):
+    """Encode a batch of streams with K3, all in one launch.
+
+    scans: (B, L, 3) uint8 (zero-padded); lengths: (B,). Returns a list of
+    (counts uint8[R], colors uint8[R, 3]) per stream, identical to the
+    reference recurrence up to f32-vs-f64 boundary rounding.
+    """
+    dev = resolve_device(device)
+    scans = np.ascontiguousarray(scans, dtype=np.uint8)
+    if scans.shape[0] == 0:
+        return []
+    rgb, lens = _position_major(scans, lengths, dev)
+    recs = _stream_major(batch_records(rgb, lens, allow))
+    out = []
+    for j, n_j in enumerate(np.asarray(lengths, np.int64).tolist()):
+        counts, colors, _ = _runs(recs[j, : n_j + 1])
+        out.append((counts, colors))
+    return out
+
+
+def approx_rle_wide(scans, lengths, allow: float, device="cuda"):
+    """Encode up to 1024 streams with K2 in one launch.
+
+    scans: (B, L, 3) uint8 (zero-padded); lengths: (B,). allow must be a
+    nonnegative integer <= 64. Returns a list of (counts uint8[R], colors
+    uint8[R, 3], last_forced bool, flagged bool) per stream: `last_forced`
+    marks a final record closed by stream end (what a chunk stitcher drops
+    at seams); `flagged` marks a stream that hit an exact boundary tie where
+    the reference's f64 recurrence is not predicted by exact arithmetic —
+    re-run those through the native engine.
+    """
+    allow_i = int(allow)
+    if allow_i != allow or allow_i < 0:
+        raise ValueError("wide kernel needs an integer allowance")
+    if allow_i > MAX_WIDE_ALLOW:
+        # The ICL=16384 clamp preserves accept/reject decisions only while
+        # allow*count < 16384 (count <= 255 => allow <= 64, the same bound
+        # the native C fast path enforces); beyond that a clamped term can
+        # flip a decision and (allow*c)^2 overflows int32 from allow >= 183.
+        # Callers must use the exact-f64 native engine.
+        raise ValueError("wide kernel supports integer allow <= 64 only "
+                         "(ICL clamp bound; use native.approx_rle_encode)")
+    dev = resolve_device(device)
+    scans = np.ascontiguousarray(scans, dtype=np.uint8)
+    B = scans.shape[0]
+    if B > WIDE:
+        raise ValueError(f"wide kernel packs at most {WIDE} streams")
+    rgb, lens = _position_major(scans, lengths, dev)
+    recs_t, flags_t = wide_records(rgb, lens, allow_i)
+    recs = _stream_major(recs_t)
+    flags = flags_t.cpu().numpy()
+    out = []
+    for j, n_j in enumerate(np.asarray(lengths, np.int64).tolist()):
+        col = recs[j, : n_j + 1]
+        counts, colors, ends = _runs(col)
+        last_forced = bool(ends.size and (col[ends[-1]] >> 25) & 1)
+        out.append((counts, colors, last_forced, bool(flags[j])))
+    return out
+
+
+def approx_rle_chunked(scan: np.ndarray, allow: float, chunk: int = 1024,
+                       device="cuda"):
+    """Byte-exact approx-RLE of ONE stream via ~1024 speculative chunks.
+    K2 encodes every chunk as if it started a fresh run; the stitcher walks
+    the truth: wherever the true parse has a run START at a position where
+    an (unflagged) speculative chunk also starts a run, the chunk's
+    remaining records ARE the truth (the recurrence is deterministic from
+    identical state), so they are adopted wholesale; the gaps between sync
+    points (runs crossing seams, flagged chunks, dropped force-closed
+    records) are replayed through the exact-f64 native engine in bounded
+    windows. Output == native.approx_rle_encode.
+    """
+    from .. import native
+
+    scan = np.ascontiguousarray(scan, dtype=np.uint8)
+    n = scan.shape[0]
+    if n == 0:
+        return (np.zeros(0, np.uint8), np.zeros((0, 3), np.uint8))
+    if not float(allow).is_integer() or not 0 <= allow <= MAX_WIDE_ALLOW:
+        # outside K2's exact-decision envelope (see approx_rle_wide): the
+        # native engine IS the byte-exact answer
+        return native.approx_rle_encode(scan, allow)
+    n_chunks = -(-n // chunk)
+    if n_chunks > WIDE:
+        chunk = -(-n // WIDE)
+        n_chunks = -(-n // chunk)
+    L = chunk
+    scans = np.zeros((n_chunks, L, 3), np.uint8)
+    lens = np.empty(n_chunks, np.int64)
+    for j in range(n_chunks):
+        part = scan[j * chunk : (j + 1) * chunk]
+        scans[j, : part.shape[0]] = part
+        lens[j] = part.shape[0]
+    spec = approx_rle_wide(scans, lens, allow, device=device)
+
+    # per-chunk absolute run-start positions (sync points) and record lists
+    starts: list[np.ndarray] = []
+    for j, (counts, colors, forced, flagged) in enumerate(spec):
+        if flagged:
+            starts.append(np.zeros(0, np.int64))
+            continue
+        ends = j * chunk + np.cumsum(counts.astype(np.int64))
+        starts.append(np.concatenate([[j * chunk], ends[:-1]]))
+
+    out_counts: list[np.ndarray] = []
+    out_colors: list[np.ndarray] = []
+    p = 0
+    while p < n:
+        j = p // chunk
+        counts, colors, forced, flagged = spec[j]
+        # the last chunk's stream end IS the true stream end: its
+        # force-close is genuine, not speculative
+        forced = forced and j < n_chunks - 1
+        sync = starts[j]
+        k = np.searchsorted(sync, p)
+        if not flagged and k < sync.size and sync[k] == p:
+            # adopt chunk j's records from this run start on, minus the
+            # force-closed tail (its run truly continues across the seam)
+            keep = counts[k:]
+            keepc = colors[k:]
+            if forced and keep.size:
+                keep, keepc = keep[:-1], keepc[:-1]
+            if keep.size:
+                out_counts.append(keep)
+                out_colors.append(keepc)
+                p += int(keep.astype(np.int64).sum())
+                if not forced:
+                    continue  # landed exactly on the chunk seam, fresh
+            # fall through to replay (forced tail or empty adoption)
+        # replay a window with the exact engine until a sync point is hit
+        W = chunk + 512
+        while p < n:
+            sub = scan[p : p + W]
+            cc, ccol = native.approx_rle_encode(sub, allow)
+            full = p + sub.shape[0] == n
+            if not full and cc.size:
+                cc, ccol = cc[:-1], ccol[:-1]  # window-forced close
+            if not cc.size:
+                W *= 2  # a single run longer than the window: widen
+                continue
+            ends = p + np.cumsum(cc.astype(np.int64))
+            # earliest record end that is a sync point of its chunk
+            hit = -1
+            for i, q in enumerate(ends.tolist()):
+                if q >= n:
+                    hit = i
+                    break
+                sj = starts[q // chunk]
+                kq = np.searchsorted(sj, q)
+                if kq < sj.size and sj[kq] == q:
+                    hit = i
+                    break
+            if hit >= 0:
+                out_counts.append(cc[: hit + 1])
+                out_colors.append(ccol[: hit + 1])
+                p = int(ends[hit])
+                break
+            out_counts.append(cc)
+            out_colors.append(ccol)
+            p = int(ends[-1])
+        # loop back to try chunk adoption at the new p
+
+    counts = np.concatenate(out_counts) if out_counts else np.zeros(0, np.uint8)
+    colors = (np.concatenate(out_colors) if out_colors
+              else np.zeros((0, 3), np.uint8))
+    return counts.astype(np.uint8), colors.astype(np.uint8)

@@ -1,5 +1,6 @@
-"""Card-only checks of the PyTorch port: K1 on the card against its plain
-version, and the k-means codecs on the card against the CPU path.
+"""Card-only checks of the PyTorch port: K1, K2 and K3 on the card against
+their plain versions, and the k-means codecs and the gated Hilbert codecs on
+the card against the CPU path.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -13,8 +14,10 @@ import pytest
 import torch
 
 from cniic_tpu_torch.codecs import from_spec
+from cniic_tpu_torch.ops import approx_rle as trle
 from cniic_tpu_torch.ops import kmeans as tkm
 from cniic_tpu_torch.ops import kmeans_kernel as tkk
+from torch_rle_cases import TIE, fma_batch, make_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +97,69 @@ def test_engine_and_codecs_match_cpu(cuda):
         for im, s in zip(imgs, streams):
             np.testing.assert_array_equal(
                 on_card.decode(s), from_spec(spec, device="cpu").decode(s))
+
+
+def _rle_operands(scans, lens):
+    return trle._position_major(scans, lens, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("allow", [0, 1, 2, 4, 16, 64])
+def test_k2_matches_plain_version(cuda, allow):
+    rng = np.random.default_rng(allow)
+    scans, lens = make_batch(rng)
+    scans = np.concatenate([scans, np.full((1, 3000, 3), 9, np.uint8)])
+    scans[1, 500:504] = TIE  # a boundary tie at allow 2
+    lens = np.concatenate([lens, [2804]])
+    rgb, ln = _rle_operands(scans, lens)
+    want = trle.approx_rle_wide_ref(rgb, ln, allow)
+    before = trle.wide_records.launches
+    got = trle.wide_records(rgb.to(cuda), ln.to(cuda), allow)
+    torch.cuda.synchronize()
+    assert trle.wide_records.launches == before + 1
+    for g, w_ in zip(got, want):
+        assert g.is_cuda
+        assert torch.equal(g.cpu(), w_)
+    if allow == 2:
+        assert int(want[1][1]) == 1
+
+
+@pytest.mark.parametrize("allow", [1.0, 2.5, 4.0, 16.0, 32.0, 64.0])
+def test_k3_matches_plain_version(cuda, allow):
+    scans, lens = make_batch(np.random.default_rng(int(allow)))
+    if allow in (32.0, 64.0):
+        scans, lens, _ = fma_batch(int(allow), np.random.default_rng(1))
+    rgb, ln = _rle_operands(scans, lens)
+    want = trle.approx_rle_batch_ref(rgb, ln, allow)
+    before = trle.batch_records.launches
+    got = trle.batch_records(rgb.to(cuda), ln.to(cuda), allow)
+    torch.cuda.synchronize()
+    assert trle.batch_records.launches == before + 1
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_rle_wrappers_refuse_before_launch(cuda):
+    rgb = torch.zeros((10, 3), dtype=torch.int32, device=cuda)
+    lens = torch.full((3,), 10, dtype=torch.int32, device=cuda)
+    before = (trle.wide_records.launches, trle.batch_records.launches)
+    with pytest.raises(ValueError):
+        trle.wide_records(rgb, lens, 65)
+    with pytest.raises(ValueError):
+        trle.batch_records(rgb, lens.cpu(), 4.0)
+    assert (trle.wide_records.launches, trle.batch_records.launches) == before
+
+
+@pytest.mark.parametrize("gate", ["CNIIC_CHUNKED_RLE", "CNIIC_PALLAS_RLE"])
+def test_gated_hilbert_codecs_match_cpu(cuda, monkeypatch, gate):
+    rng = np.random.default_rng(11)
+    imgs = [np.clip(rng.integers(0, 60, 3) + rng.integers(
+        -3, 4, (h, w, 3)).cumsum(1), 0, 255).astype(np.uint8)
+        for h, w in ((64, 80), (48, 90), (40, 40))]
+    monkeypatch.setenv(gate, "1")
+    counter = (trle.wide_records if gate == "CNIIC_CHUNKED_RLE"
+               else trle.batch_records)
+    for allow in (4, 16):
+        spec = f"hilbert(rle({allow}))"
+        before = counter.launches
+        on_card = from_spec(spec, device="cuda").encode_batch(imgs)
+        assert counter.launches > before
+        assert on_card == from_spec(spec, device="cpu").encode_batch(imgs)

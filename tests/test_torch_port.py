@@ -6,6 +6,7 @@
   and RGBA and every filter type;
 * `runner.measure_all` writes byte-identical CSVs in both packages;
 * the CLI runs with `--device cpu` and refuses `--device cuda` with no card.
+  (`--special=hilbert` is held against the JAX CLI in test_torch_hilbert.py.)
 """
 
 import os
@@ -167,7 +168,9 @@ def pngs(tmp_path):
 
 
 @pytest.mark.parametrize("spec,batch", [("cluster-colors(8)", 1),
-                                        ("voronoi(12)", 2)])
+                                        ("voronoi(12)", 2),
+                                        ("hilbert(rle(4))", 2),
+                                        ("hilbert(zip)", 1)])
 def test_measure_all_csv_identical(pngs, tmp_path, spec, batch):
     rj = jax_runner.measure_all(jax_from_spec(spec), pngs,
                                 output_dir=str(tmp_path / "jax"),
@@ -180,8 +183,12 @@ def test_measure_all_csv_identical(pngs, tmp_path, spec, batch):
     jcsv = (tmp_path / "jax" / name).read_bytes()
     assert (tmp_path / "port" / name).read_bytes() == jcsv
     assert len(jcsv.splitlines()) == 1 + len(pngs)
-    for p in pngs:  # the decoded images saved for the lossy rows
+    for p in pngs:  # the decoded images saved for the rows with an error
         stem = os.path.splitext(os.path.basename(p))[0] + ".png"
+        saved = (tmp_path / "jax" / stem).exists()
+        assert (tmp_path / "port" / stem).exists() == saved
+        if not saved:
+            continue
         with Image.open(tmp_path / "jax" / stem) as a:
             np.testing.assert_array_equal(
                 image_io.load_image(tmp_path / "port" / stem), np.asarray(a))
@@ -194,6 +201,8 @@ def test_cli_runs_on_cpu(pngs, tmp_path, monkeypatch, capsys):
     assert "3 images ok, 0 failed" in capsys.readouterr().out
     assert (tmp_path / "output" / "voronoi_12.csv").exists()
     assert cli.main(["--codec=ccol(8)", "--device=cpu", pngs[0]]) == 0
+    assert cli.main(["--codec=hilbert(rle(4))", "--device", "cpu"] + pngs) == 0
+    assert (tmp_path / "output" / "hilbert-rle-approx_4.csv").exists()
 
 
 def test_cli_refusals(pngs, tmp_path, monkeypatch, capsys):
@@ -202,8 +211,8 @@ def test_cli_refusals(pngs, tmp_path, monkeypatch, capsys):
     assert cli.main(["--codec=hufman", "--device", "cpu", pngs[0]]) == 1
     assert "not ported yet" in capsys.readouterr().err
     assert cli.main(["--codec=voronoi(4)", "--device", "tpu", pngs[0]]) == 1
-    with pytest.raises(NotImplementedError):
-        cli.main(["--special=hilbert", pngs[0]])
+    assert cli.main(["--special=bogus", pngs[0]]) == 1
+    assert "Invalid special command" in capsys.readouterr().err
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: --device cuda is accepted")
     assert cli.main(["--codec=voronoi(4)", pngs[0]]) == 1  # cuda by default

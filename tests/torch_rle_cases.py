@@ -1,0 +1,59 @@
+"""Crafted approximate-RLE streams shared by the port's CPU and CUDA tests
+(imports neither jax nor `cniic_tpu`)."""
+
+import numpy as np
+
+# (allow, count c, t0, t1, t2): after a run of c pixels with channel sums S,
+# the next pixel x gives t = S - c*x with sum t^2 within f32 rounding of
+# (allow*c)^2, where fma(t2, t2, fma(t0, t0, t1*t1)) rejects x but the
+# unfused (t0*t0 + t1*t1) + t2*t2 accepts it
+FMA_CASES = [
+    (32, 237, -203, 1909, 7337), (32, 246, 733, -3127, 7187),
+    (32, 179, 261, -1884, 5403), (64, 98, -2577, -763, 5667),
+    (64, 246, -6038, -13622, 5085), (64, 86, 4459, 131, 3224),
+]
+
+# a run (3,3,3),(3,3,2),(4,4,3) [sums (10,10,8), count 3], then (2,2,2):
+# dist2 = 36 == (allow*c)^2 at allow 2 with every average inexact in f64,
+# the tie K2 must flag
+TIE = np.array([[3, 3, 3], [3, 3, 2], [4, 4, 3], [2, 2, 2]], np.uint8)
+
+
+def make_batch(rng):
+    """tests/test_approx_rle_pallas.py's batch: walks, a 1-pixel stream, a
+    capped length and one random stream."""
+    B, L = 6, 3000
+    lens = np.array([3000, 2999, 1, 700, 255 * 4, 2500], np.int32)
+    scans = np.zeros((B, L, 3), np.uint8)
+    for j in range(B):
+        base = rng.integers(0, 25, 3)
+        walk = rng.integers(-2, 3, (int(lens[j]), 3)).cumsum(0)
+        scans[j, : lens[j]] = np.clip(base + walk, 0, 255)
+    scans[5, : lens[5]] = rng.integers(0, 256, (int(lens[5]), 3))
+    return scans, lens
+
+
+def run_then_pixel(c, t, rng, tail=40):
+    """A run of c pixels whose sums give exactly `t` against the pixel that
+    follows it, then `tail` random pixels."""
+    t = np.asarray(t)
+    q = np.floor_divide(t, c)
+    u = 128 + (q + 1) // 2
+    x = u - q
+    run = np.tile(u, (c, 1))
+    for ch in range(3):
+        run[: t[ch] - c * q[ch], ch] += 1
+    assert (run.sum(0) - c * x == t).all()
+    return np.concatenate([run, x[None], rng.integers(0, 256, (tail, 3))]
+                          ).astype(np.uint8)
+
+
+def fma_batch(allow, rng):
+    """(scans, lens, first run counts) of the FMA_CASES at `allow`."""
+    streams = [(c, run_then_pixel(c, t, rng))
+               for a, c, *t in FMA_CASES if a == allow]
+    L = max(len(s) for _, s in streams)
+    scans = np.zeros((len(streams), L, 3), np.uint8)
+    for i, (_, s) in enumerate(streams):
+        scans[i, : len(s)] = s
+    return scans, np.array([len(s) for _, s in streams]), [c for c, _ in streams]
