@@ -9,9 +9,10 @@ Phases:
 1. the device: its name and power limit, the torch, CUDA, nvcc and cc
    versions;
 2. the build, all libraries at once (one compiler process each): K1
-   (`csrc/kmeans_assign.cu`), K2 and K3 (`csrc/approx_rle.cu`), both with
-   nvcc for sm_90a, with the registers, shared memory and spills ptxas
-   reports, and the host C runtime, all from the sources in this checkout;
+   (`csrc/kmeans_assign.cu`), K2 and K3 (`csrc/approx_rle.cu`), D1 and D2
+   (`csrc/huffman_dev.cu`), all with nvcc for sm_90a, with the registers,
+   shared memory and spills ptxas reports, and the host C runtime, all from
+   the sources in this checkout;
 3. every kernel against its plain PyTorch version at real widths, exact
    equality of every output. K1: (a) voronoi-like, 4 lanes x 1024^2
    points, d = 5, k = 128; (b) cluster-colors-like, 8 lanes of unique
@@ -22,8 +23,13 @@ Phases:
    allow 16; (c) the 2040x1356 scan, 1024 chunks of 2702, allow 4; (d)
    crafted boundary ties at allow 2 (flags set); (e) allow 64. K3 on 8
    streams of 16384 pixels opening with crafted boundary runs at allow 4,
-   16 and 64. Then each kernel and its plain version timed on the card in
-   turns, and K3 alone at 8 x 1024^2;
+   16 and 64. D1 on the 8 Hufman id streams of the 1024^2 images in one
+   batched launch, on one delta stream through the single route and on a
+   geometric codebook with 63-bit codes; D2's two passes on a 1024^2
+   Hufman payload and a delta payload, and its decline on a deep-code
+   stream; D1 and D2 also against the native C packer and decoder. Then
+   each kernel and its plain version timed on the card in turns, K3 alone
+   at 8 x 1024^2, and the D1/D2 routes against the C paths (host clock);
 4. the main paths through the normal entry points, each with the kernel
    counts set to 0 just before it and read just after: `runner.
    measure_all(from_spec(spec, device="cuda"), paths, batch=8)` over 8
@@ -34,11 +40,17 @@ Phases:
    hilbert(rle(4)) and hilbert(zip) with no gate (the host C runtime), then
    hilbert(rle(4)) under CNIIC_CHUNKED_RLE=1 (K2 must have launched and the
    streams must equal the ungated ones byte for byte) and under
-   CNIIC_PALLAS_RLE=1 (K3 must have launched);
+   CNIIC_PALLAS_RLE=1 (K3 must have launched). (iii) hufman, delta,
+   zip(dict) and zip(back) with no gate (the host C runtime), then hufman,
+   delta and cluster-colors(32) under CNIIC_DEVICE_BITPACK=1 (D1 must have
+   launched, the streams must equal the ungated ones) and under
+   CNIIC_DEVICE_HUF_DECODE=1 (D2 must have launched and declined nowhere,
+   the MSEs must equal the ungated ones: 0 for the lossless codecs);
 5. the card against the CPU: identical streams for two 256^2 crops with the
-   k-means codecs and with hilbert(rle(4)) under each gate (the CPU runs
-   the plain versions), and the phase-4 voronoi streams decoded on the CPU
-   give the MSEs measured on the card.
+   k-means codecs, with hilbert(rle(4)) under each of its gates and with
+   hufman, delta and cluster-colors(32) under each Huffman gate (identical
+   decodes too; the CPU runs the plain versions), and the phase-4 voronoi
+   streams decoded on the CPU give the MSEs measured on the card.
 
 It ends with a line holding the card's name and power limit, a JSON line
 describing each kernel of the paths, and the JSON result line. Any failure
@@ -65,11 +77,13 @@ import time
 import numpy as np
 import torch
 
-from cniic_tpu_torch import _build, hilbert, native, runner
+from cniic_tpu_torch import _build, hilbert, huffman, native, runner
 from cniic_tpu_torch.codecs import VoronoiCluster, from_spec
+from cniic_tpu_torch.codecs import delta as delta_codec
 from cniic_tpu_torch.codecs.base import pixels_row_major
 from cniic_tpu_torch.image_io import save_png
-from cniic_tpu_torch.ops import approx_rle, histogram, kmeans_kernel
+from cniic_tpu_torch.ops import (approx_rle, bitpack, histogram, hufdec,
+                                 kmeans_kernel)
 from cniic_tpu_torch.ops import kmeans as km
 
 K1_SOURCE = "cniic_tpu_torch/csrc/kmeans_assign.cu"
@@ -81,6 +95,12 @@ SPECS = ("cluster-colors(32)", "voronoi(128)")
 HILBERT_SPECS = ("hilbert(rle)", "hilbert(rle(4))", "hilbert(zip)")
 GATED = "hilbert(rle(4))"
 GATES = ("CNIIC_CHUNKED_RLE", "CNIIC_PALLAS_RLE")
+HUF_SOURCE = "cniic_tpu_torch/csrc/huffman_dev.cu"
+D1_REPLACES = "cniic_tpu/ops/bitpack.py:43"
+D2_REPLACES = "cniic_tpu/ops/hufdec.py:82"
+HOST_SPECS = ("hufman", "delta", "zip(dict)", "zip(back)")
+HUF_SPECS = ("hufman", "delta", "cluster-colors(32)")
+HUF_GATES = ("CNIIC_DEVICE_BITPACK", "CNIIC_DEVICE_HUF_DECODE")
 
 # (real, rehearsal) sizes
 SIZES = {
@@ -176,6 +196,7 @@ def phase_build(rehearse: bool) -> None:
     if not rehearse:
         jobs["K1"] = kmeans_kernel.load_library
         jobs["K2+K3"] = approx_rle.load_library
+        jobs["D1+D2"] = bitpack.load_library
     seconds, errors = {}, {}
 
     def build(name, fn):
@@ -199,7 +220,7 @@ def phase_build(rehearse: bool) -> None:
     print(f"phase 2: built {', '.join(jobs)} in parallel in {wall:.2f} s ("
           + ", ".join(f"{n} {t:.2f} s" for n, t in seconds.items()) + ")")
     if rehearse:
-        print("  K1, K2 and K3 not built (no nvcc in a rehearsal)")
+        print("  K1, K2, K3, D1 and D2 not built (no nvcc in a rehearsal)")
         return
     with open(_build.log_path(kmeans_kernel.NAME)) as fh:
         log = fh.read()
@@ -216,7 +237,10 @@ def phase_build(rehearse: bool) -> None:
           f"registers, max {max(int(e[2]) for e in entries)} B spills")
     with open(_build.log_path(approx_rle.NAME)) as fh:
         rle = _ptxas_entries(fh.read())
-    for label, key in (("K2", "wide_kernel"), ("K3", "batch_kernel")):
+    with open(_build.log_path(bitpack.NAME)) as fh:
+        rle.update(_ptxas_entries(fh.read()))
+    for label, key in (("K2", "wide_kernel"), ("K3", "batch_kernel"),
+                       ("D1", "pack_kernel"), ("D2", "walk_kernel")):
         found = [(n, v) for n, v in rle.items() if key in n]
         check(len(found) == 1, f"ptxas reported {len(found)} {key} entries")
         regs, st, ld, smem = found[0][1]
@@ -513,6 +537,178 @@ def phase_rle_kernels(imgs, dev, card, sz):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: D1 and D2 against their plain versions
+# ---------------------------------------------------------------------------
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _max_err(got, want) -> int:
+    return max(int((g.cpu().to(torch.int64) - w.cpu().to(torch.int64))
+                   .abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def _d1_case(name, ids_list, freqs_list, dev):
+    """D1 against its plain version on the card and the packed bytes against
+    the native C packer; returns (max |err|, operands, n_words)."""
+    books = [huffman.build_codebook(f) for f in freqs_list]
+    ids, codes, lens, _ = huffman.batch_arrays(ids_list, freqs_list, books)
+    # payload bits of the ids as drawn (the geometric case's ids do not
+    # follow its frequencies)
+    totals = [int(b.lens[sym].astype(np.int64).sum())
+              for sym, b in zip(ids_list, books)]
+    ops = bitpack.operands(ids, codes, lens, dev)
+    n_words = max([(t + 31) // 32 for t in totals] + [1])
+    t0 = time.perf_counter()
+    want = bitpack.pack_words_ref(*ops, n_words)
+    _sync(dev)
+    t_ref = time.perf_counter() - t0
+    got = bitpack.pack_words(*ops, n_words)
+    _sync(dev)
+    err = _max_err([got], [want])
+    words = got.cpu().numpy()
+    for i, (sym, book) in enumerate(zip(ids_list, books)):
+        check(bitpack._words_to_bytes(words[i].view(np.uint32), totals[i])
+              == native.pack_bits(book.codes, book.lens, sym),
+              f"D1 ({name}) stream {i}: bytes differ from the C packer")
+    print(f"  D1 ({name}) {ids.shape[0]} x {ids.shape[1]} ids, alphabets "
+          f"up to {codes.shape[1] - 1}, codes up to {int(lens.max())} bits, "
+          f"{sum(totals)} payload bits: max |err| {err}, bytes equal the C "
+          f"packer's (plain version {t_ref:.3f} s)")
+    check(err == 0, f"D1 differs from its plain version in {name}")
+    return err, ops, n_words
+
+
+def _tree_stream(ids, freqs):
+    """(payload, left, right, symbol) of one id stream, packed in C."""
+    book = huffman.build_codebook(freqs)
+    tree = huffman.serialize_tree(book, np.zeros((freqs.size, 1), np.uint8))
+    left, right, symbol, _, _ = huffman.parse_tree(
+        np.frombuffer(tree, np.uint8), 1)
+    return native.pack_bits(book.codes, book.lens, ids), left, right, symbol
+
+
+def _d2_case(name, stream, n, dev):
+    """Both passes of D2 against the plain version on the card, and the
+    device decode against the native decoder (or both routes declining);
+    returns (max |err|, declined, pass-1 operands)."""
+    payload, left, right, symbol = stream
+    pay, lr2, s1, e1, chunk, chunk_ends, total = hufdec.lanes(
+        np.frombuffer(payload, np.uint8), left, right, symbol, dev)
+    t0 = time.perf_counter()
+    want = hufdec.walk_ref(pay, lr2, s1, e1, total)
+    _sync(dev)
+    t_ref = time.perf_counter() - t0
+    got = hufdec.walk(pay, lr2, s1, e1, total)
+    err = _max_err(got[:2], want[:2])
+    check(got[2] == want[2], f"D2 ({name}): pass 1 frozen flags differ")
+    composed = hufdec.compose(got[0], got[1], n) if got[2] else None
+    if composed is not None:
+        offs, out_start = (torch.from_numpy(a).to(dev) for a in composed)
+        args = (pay, lr2, chunk + offs, chunk_ends, total)
+        got2 = hufdec.walk(*args, out_start=out_start, n_symbols=n)
+        want2 = hufdec.walk_ref(*args, out_start=out_start, n_symbols=n)
+        err = max(err, _max_err([got2[1], got2[3]], [want2[1], want2[3]]))
+    dec = hufdec.decode_payload_device(payload, left, right, symbol, n,
+                                       device=dev)
+    declined = composed is None
+    check((dec is None) == declined, f"D2 ({name}): the route and the passes "
+          "disagree on declining")
+    if dec is not None:
+        check(np.array_equal(dec, native.huf_decode(payload, left, right,
+                                                    symbol, 0, n)),
+              f"D2 ({name}): ids differ from the native decoder's")
+    print(f"  D2 ({name}) {len(payload)} B payload, {s1.numel()} pass-1 "
+          f"lanes, {chunk.numel()} pass-2 lanes: max |err| {err}, "
+          + ("declined" if declined else "ids equal the native decoder's")
+          + f" (plain pass 1 {t_ref:.2f} s)")
+    check(err == 0, f"D2 differs from its plain version in {name}")
+    return err, declined, (pay, lr2, s1, e1, total)
+
+
+def phase_huffman_kernels(imgs, dev, card, sz):
+    print("phase 3 (cont.): D1 and D2 against their plain versions (exact "
+          "equality)")
+    stats = [histogram.color_histogram(pixels_row_major(im)) for im in imgs[:8]]
+    d1_err, d1_ops, n_words = _d1_case(
+        "a Hufman, 8 images", [s[2] for s in stats], [s[1] for s in stats],
+        dev)
+    _, dcounts, dinv = delta_codec._scan_stats(imgs[0])
+    err, _, _ = _d1_case("b delta, 1 image", [dinv], [dcounts], dev)
+    d1_err = max(d1_err, err)
+    rng = np.random.default_rng(11)
+    geo = 2 ** np.arange(64, dtype=np.uint64)
+    err, _, _ = _d1_case("c geometric codebook",
+                         [rng.integers(0, 64, imgs[0].shape[0] ** 2)
+                          .astype(np.int32)], [geo], dev)
+    d1_err = max(d1_err, err)
+
+    huf = _tree_stream(stats[0][2], stats[0][1])
+    d2_err, declined, d2_ops = _d2_case("a Hufman", huf, stats[0][2].size, dev)
+    check(not declined, "D2 declined the Hufman payload")
+    err, declined, _ = _d2_case("b delta", _tree_stream(dinv, dcounts),
+                                dinv.size, dev)
+    check(not declined, "D2 declined the delta payload")
+    d2_err = max(d2_err, err)
+    deep_ids = rng.integers(0, 40, 30_000).astype(np.int32)
+    deep = _tree_stream(deep_ids, 2 ** np.arange(40, dtype=np.uint64))
+    err, declined, _ = _d2_case("c deep codes", deep, deep_ids.size, dev)
+    d2_err = max(d2_err, err)
+    on_cpu = hufdec.decode_payload_device(*deep, deep_ids.size, device="cpu")
+    check((on_cpu is None) == declined,
+          "D2 and its plain version on the CPU disagree on the deep stream")
+    print(f"  D2 (c deep codes): the card and the CPU plain version both "
+          f"{'decline' if declined else 'decode'}")
+
+    timings = {
+        "D1": _time_turns(lambda: bitpack.pack_words(*d1_ops, n_words),
+                          lambda: bitpack.pack_words_ref(*d1_ops, n_words),
+                          sz["iters"], dev),
+        "D2": _time_turns(lambda: hufdec.walk(*d2_ops),
+                          lambda: hufdec.walk_ref(*d2_ops),
+                          sz["iters"], dev)}
+    t_check = _time_ms(lambda: bitpack._check(*d1_ops), sz["iters"], dev)
+    print(f"  D1's input checks alone (one host sync): {t_check:.4f} ms")
+    for name, shape in (("D1", f"{d1_ops[0].shape[0]} x {d1_ops[0].shape[1]}"
+                         " ids"), ("D2", f"pass 1, {d2_ops[2].numel()} lanes")):
+        (k1, k2), (p1, p2) = timings[name]
+        print(f"  time {name} ({shape}) on {card}: kernel {k1:.4f} / "
+              f"{k2:.4f} ms per launch, plain version {p1:.1f} / {p2:.1f} ms "
+              f"(plain, kernel, kernel, plain)")
+
+    # the whole routes against the C paths on the same streams (host clock)
+    books = [huffman.build_codebook(s[1]) for s in stats]
+    arrays = huffman.batch_arrays([s[2] for s in stats],
+                                  [s[1] for s in stats], books)
+    t0 = time.perf_counter()
+    for s, b in zip(stats, books):
+        native.pack_bits(b.codes, b.lens, s[2])
+    t_cpack = (time.perf_counter() - t0) * 1e3
+    bitpack.pack_bits_batch(*arrays, device=dev)  # warm
+    t0 = time.perf_counter()
+    bitpack.pack_bits_batch(*arrays, device=dev)
+    t_dpack = (time.perf_counter() - t0) * 1e3
+    n = stats[0][2].size
+    t0 = time.perf_counter()
+    native.huf_decode(huf[0], *huf[1:], 0, n)
+    t_cdec = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    hufdec.decode_payload_device(*huf, n, device=dev)
+    t_ddec = (time.perf_counter() - t0) * 1e3
+    print(f"  routes on the 1024^2 Hufman streams: pack 8 streams C "
+          f"{t_cpack:.2f} ms, pack_bits_batch (D1 route) {t_dpack:.2f} ms; "
+          f"decode 1 stream C {t_cdec:.2f} ms, decode_payload_device (D2 "
+          f"route) {t_ddec:.2f} ms")
+    return {"D1": (d1_err, timings["D1"]), "D2": (d2_err, timings["D2"]),
+            "D1 check ms": t_check,
+            "routes ms": {"pack_c_8": t_cpack, "pack_d1_8": t_dpack,
+                          "decode_c_1": t_cdec, "decode_d2_1": t_ddec}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4 and 5
 # ---------------------------------------------------------------------------
 
@@ -566,7 +762,8 @@ def _measured(spec, paths, dev, card, out_dir):
         check(rec["fused_mses"] == [r[3] for r in res.rows],
               "fused MSEs differ from the CSV rows")
     dec_mps = res.megapixels / res.decode_s if res.decode_s else 0.0
-    gate = ",".join(g for g in GATES if os.environ.get(g) == "1") or "no gate"
+    gate = ",".join(g for g in GATES + HUF_GATES
+                    if os.environ.get(g) == "1") or "no gate"
     print(f"  {spec} ({gate}) on {card}: encode {res.encode_mps:.3f} MP/s, "
           f"decode {dec_mps:.3f} MP/s ({res.megapixels:.3f} MP); mean ratio "
           f"{res.mean_ratio:.4f}%, mean MSE {res.mean_error:.4f}; fused "
@@ -615,6 +812,33 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
           f"{GATED}: the chunked route's streams differ from the ungated ones")
     print(f"  {GATED}: the {len(chunked)} streams of the chunked route equal "
           "the ungated streams byte for byte")
+
+    for spec in HOST_SPECS:
+        runs[spec] = _measured(spec, paths, dev, card, out_dir)
+    for name, gate_name, counter in (("D1", HUF_GATES[0], bitpack.pack_words),
+                                     ("D2", HUF_GATES[1], hufdec.walk)):
+        counter.launches = 0
+        hufdec.declines = 0
+        with gate(gate_name):
+            for spec in HUF_SPECS:
+                runs[(spec, gate_name)] = _measured(
+                    spec, paths, dev, card, f"{out_dir}_{gate_name.lower()}")
+        launches[name] = counter.launches
+        print(f"  {name} launches over {', '.join(HUF_SPECS)} under "
+              f"{gate_name}=1: {launches[name]}; D2 declines "
+              f"{hufdec.declines}")
+        for spec in HUF_SPECS:
+            _, res, rec = runs[(spec, gate_name)]
+            check(rec["blobs"] == runs[spec][2]["blobs"],
+                  f"{spec} under {gate_name}: streams differ from the "
+                  "ungated ones")
+            check([r[3] for r in res.rows] == [r[3] for r in runs[spec][1].rows],
+                  f"{spec} under {gate_name}: MSEs differ from the ungated "
+                  "ones")
+        if name == "D2":
+            check(hufdec.declines == 0, "D2 declined on the suite images")
+    print(f"  {', '.join(HUF_SPECS)}: the streams and MSEs under both Huffman "
+          "gates equal the ungated ones")
     if dev.type == "cuda":
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on its main path")
@@ -624,14 +848,22 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
 def phase_card_vs_cpu(imgs, runs, dev, crop):
     print(f"phase 5: {dev.type} against the CPU path")
     crops = [np.ascontiguousarray(im[:crop, :crop]) for im in imgs[:2]]
-    for spec, gate_name in [(s, None) for s in SPECS] + [(GATED, g)
-                                                        for g in GATES]:
+    cases = ([(s, None) for s in SPECS] + [(GATED, g) for g in GATES]
+             + [(s, g) for g in HUF_GATES for s in HUF_SPECS])
+    for spec, gate_name in cases:
         with gate(gate_name) if gate_name else contextlib.nullcontext():
             t0 = time.perf_counter()
             on_dev = from_spec(spec, device=dev.type).encode_batch(crops)
             t1 = time.perf_counter()
             on_cpu = from_spec(spec, device="cpu").encode_batch(crops)
             t2 = time.perf_counter()
+            if gate_name == HUF_GATES[1]:
+                for data in on_dev:
+                    check(np.array_equal(
+                        from_spec(spec, device=dev.type).decode(data),
+                        from_spec(spec, device="cpu").decode(data)),
+                        f"{spec} ({gate_name}): {dev.type} and CPU decodes "
+                        "differ")
         check(on_dev == on_cpu, f"{spec} ({gate_name}): {dev.type} and CPU "
               "streams differ")
         print(f"  {spec}{f' under {gate_name}=1' if gate_name else ''}: "
@@ -663,6 +895,7 @@ def main() -> int:
     imgs.append(synth_image(rng, *sz["div2k"]))
     max_err, timings = phase_kernel(imgs, dev, card, sz)
     rle = phase_rle_kernels(imgs, dev, card, sz)
+    huf = phase_huffman_kernels(imgs, dev, card, sz)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = []
@@ -680,7 +913,8 @@ def main() -> int:
         print(card)
     (ms, plain_ms), (ms_b, plain_ms_b) = timings["a"], timings["b"]
     kernels = [{
-        "name": "kmeans_assign_stats", "route": "cuda", "source": K1_SOURCE,
+        "id": "K1", "name": "kmeans_assign_stats", "route": "cuda",
+        "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches["K1"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "ms_cluster_colors": ms_b, "plain_ms_cluster_colors": plain_ms_b}]
@@ -688,10 +922,19 @@ def main() -> int:
                                ("K3", "approx_rle_batch", K3_REPLACES)):
         err, (k_ms, p_ms) = rle[name]
         kernels.append({
-            "name": fn, "route": "cuda", "source": RLE_SOURCE,
+            "id": name, "name": fn, "route": "cuda", "source": RLE_SOURCE,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2})
     kernels[-1]["ms_8x1024x1024"] = rle["K3 8x1024^2 ms"]
+    for name, fn, replaces in (("D1", "huf_pack", D1_REPLACES),
+                               ("D2", "huf_walk", D2_REPLACES)):
+        err, (k_ms, p_ms) = huf[name]
+        kernels.append({
+            "id": name, "name": fn, "route": "cuda", "source": HUF_SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2})
+    kernels[-2]["check_ms"] = huf["D1 check ms"]
+    kernels[-1]["routes_ms"] = huf["routes ms"]
     print(json.dumps({"kernels": kernels}))
     if dev.type == "cuda":
         kind, count, platform = (torch.cuda.get_device_name(0),

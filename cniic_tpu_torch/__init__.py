@@ -1,14 +1,17 @@
 """cniic-tpu on PyTorch and CUDA: the port of `cniic_tpu` to one NVIDIA H100.
 
 The JAX package `cniic_tpu` stays the reference; this package runs the same
-codecs with torch ops on an explicit device, and its hot kernel (the fused
-k-means assign+stats step) is CUDA C++ written for Hopper (`sm_90a`,
-`csrc/kmeans_assign.cu`). It imports torch and numpy, never jax and never
+nine codec families (`hufman`, `zip(dict)`, `zip(back)`, `hilbert(rle)`,
+`hilbert(rle(d))`, `hilbert(zip)`, `delta`, `cluster-colors(n)`,
+`voronoi(n)`) with byte-identical streams, through `codecs.from_spec`,
+`runner.measure_all`, the CLI and `bench`, on an explicit device. Its
+kernels are CUDA C++ written for Hopper (`sm_90a`, `csrc/`): K1, the fused
+k-means assign+stats step; K2 and K3, approximate RLE behind
+CNIIC_CHUNKED_RLE=1 / CNIIC_PALLAS_RLE=1; D1 and D2, Huffman bit packing
+and chunked decode behind CNIIC_DEVICE_BITPACK=1 /
+CNIIC_DEVICE_HUF_DECODE=1. It imports torch and numpy, never jax and never
 `cniic_tpu`; the host C runtime is compiled from the reference's one source
 file into this package's `_build/` directory (see `_build.py`).
-
-Ported so far: the two k-means codecs, `cluster-colors(n)` and
-`voronoi(n)`, through `codecs.from_spec`, `runner.measure_all` and the CLI.
 
 Public API:
     from cniic_tpu_torch import codecs

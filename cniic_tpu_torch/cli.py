@@ -24,8 +24,11 @@ from .codecs import from_spec
 
 USAGE = """Usage: python -m cniic_tpu_torch --codec=<codec> [--device cuda|cpu] [--batch=N] [--resume] [<img file>..]
        python -m cniic_tpu_torch --special=hilbert [<img file>..]
-Available codecs (ported so far):
+Available codecs:
+  hufman
+  zip(dict) | zip(back)
   hilbert(rle) | hilbert(rle(<d>)) | hilbert(zip)
+  delta
   cluster-colors(<n>) | ccol(<n>)
   voronoi(<n>)"""
 

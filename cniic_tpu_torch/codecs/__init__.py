@@ -2,9 +2,10 @@
 
 Port of ``cniic_tpu/codecs/__init__.py``. Alternatives are tried in the
 reference's fixed order: ClusterColors, VoronoiCluster, Delta, Hilbert,
-Hufman, Zip (codec.rs:120-127). The k-means families and the Hilbert family
-are ported; a spec none of them accepts would go to Delta, Hufman or Zip,
-which are not ported yet, so it raises ``NotImplementedError``.
+Hufman, Zip (codec.rs:120-127) — the order matters because several grammars
+overlap loosely. A spec none of them accepts raises ``specs.AllFailed``.
+Every codec takes ``device`` and resolves it, so a missing card is refused
+for every spec.
 """
 
 from __future__ import annotations
@@ -12,34 +13,42 @@ from __future__ import annotations
 import functools
 
 from .. import specs
+from . import delta as _delta, hilbertc as _hilbertc, hufman as _hufman, zipc as _zipc
 from .base import Codec
 from .clusterc import ClusterColors, VoronoiCluster, parse_cluster_colors, parse_voronoi
+from .delta import Delta
 from .hilbertc import Hilbert
-from .hilbertc import parse as parse_hilbert
+from .hufman import Hufman
+from .zipc import Zip
 
-__all__ = ["Codec", "ClusterColors", "VoronoiCluster", "Hilbert", "from_spec",
-           "PORTED"]
+__all__ = [
+    "Codec", "ClusterColors", "VoronoiCluster", "Delta", "Hilbert",
+    "Hufman", "Zip", "from_spec", "ALL_SPECS",
+]
 
-PORTED = ("cluster-colors(<n>)", "voronoi(<n>)", "hilbert(rle)",
-          "hilbert(rle(<d>))", "hilbert(zip)")
+# one representative spec per codec family (the reference Makefile sweep)
+ALL_SPECS = (
+    "hufman",
+    "zip(dict)",
+    "zip(back)",
+    "hilbert(rle)",
+    "hilbert(zip)",
+    "delta",
+    "hilbert(rle(4))",
+    "cluster-colors(64)",
+    "voronoi(256)",
+)
 
 
 def from_spec(spec: str, device="cuda") -> Codec:
     """Parse a codec spec string (AnyCodec::from_str, codec.rs:43-57) into a
     codec that runs on `device` ("cuda" or "cpu"; a missing card raises)."""
-    try:
-        return (
-            specs.Alternatives(spec)
-            .then_try("ClusterColors",
-                      functools.partial(parse_cluster_colors, device=device))
-            .then_try("VoronoiCluster",
-                      functools.partial(parse_voronoi, device=device))
-            .then_try("Hilbert",
-                      functools.partial(parse_hilbert, device=device))
-            .end()
-        )
-    except specs.AllFailed as e:
-        raise NotImplementedError(
-            f"codec spec {spec!r} is not ported yet to cniic_tpu_torch "
-            f"(ported: {', '.join(PORTED)}); the Delta, Hufman and Zip "
-            "families run in cniic_tpu") from e
+    alternatives = specs.Alternatives(spec)
+    for name, parse in (("ClusterColors", parse_cluster_colors),
+                        ("VoronoiCluster", parse_voronoi),
+                        ("Delta", _delta.parse),
+                        ("Hilbert", _hilbertc.parse),
+                        ("Hufman", _hufman.parse),
+                        ("Zip", _zipc.parse)):
+        alternatives.then_try(name, functools.partial(parse, device=device))
+    return alternatives.end()

@@ -16,7 +16,9 @@ rebuilds each pixel from the nearest centroid by the wrapping-u32 2-D
 distance (color ignored) — see ops/voronoi.py.
 
 Both take ``device`` ("cuda" or "cpu"); the k-means and the voronoi
-decode run there, the histograms and Huffman coding on the host.
+decode run there, the histograms and Huffman coding on the host, apart from
+cluster-colors' Huffman payload under the env gates of ``huffman.py``
+(D1 packing, D2 decoding on ``device``).
 """
 
 from __future__ import annotations
@@ -79,7 +81,8 @@ class ClusterColors(Codec):
             device=self.device)
         ids, freq, leaf = _palette_stream_parts(
             self.n, counts, inverse, centroids, assignment)
-        stream = huffman.encode_stream(ids, freq, leaf)
+        stream = huffman.encode_stream(ids, freq, leaf,
+                                       torch_device=self.device)
         return wire.pack_dims(w, h) + stream
 
     def encode_batch(self, imgs) -> list[bytes]:
@@ -114,14 +117,15 @@ class ClusterColors(Codec):
                                   results[i][0], results[i][1])
             for i in ok]
         streams = huffman.batch_encode_streams(
-            [p[0] for p in parts], [p[1] for p in parts], [p[2] for p in parts])
+            [p[0] for p in parts], [p[1] for p in parts], [p[2] for p in parts],
+            torch_device=self.device)
         out: list = list(results)  # exceptions stay in place
         for i, s in zip(ok, streams):
             out[i] = wire.pack_dims(imgs[i].shape[1], imgs[i].shape[0]) + s
         return out
 
     def decode(self, data) -> np.ndarray:
-        return Hufman().decode(data)
+        return Hufman(device=self.device).decode(data)
 
     @property
     def name(self) -> str:

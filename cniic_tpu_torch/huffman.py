@@ -1,14 +1,25 @@
-"""Huffman coding pipeline (reference src/huf.rs), host path only.
+"""Huffman coding pipeline (reference src/huf.rs), port of ``cniic_tpu/huffman.py``.
 
-Copy of the host path of ``cniic_tpu/huffman.py``: the native C runtime
-histograms, builds optimal code lengths and the canonical code, serializes
-and parses the preorder tree, packs the payload and decodes it with the
-16-bit prefix table. ``pack_bits_numpy`` (the vectorized numpy packer, the
-``device=False`` oracle) moves in from ``cniic_tpu/ops/bitpack.py``.
+Host (native C runtime), the default: histogramming, optimal code lengths,
+the canonical code, preorder tree emission and parsing, the bit packer and
+the 16-bit prefix-table decoder. ``pack_bits_numpy`` (the vectorized numpy
+packer, the ``device=False`` oracle) lives in ``ops/bitpack.py`` as in the
+reference and is re-exported here.
 
-The env-gated device paths of the reference (``CNIIC_DEVICE_BITPACK=1``,
-``CNIIC_DEVICE_HUF_DECODE=1``) are not ported yet: setting either raises
-``NotImplementedError`` rather than being silently ignored.
+Device, behind the reference's env gates, on the torch device given as
+``torch_device`` (the codec's device; "cuda" by default, and a missing card
+raises):
+
+* ``CNIIC_DEVICE_BITPACK=1``: the payload is packed by D1
+  (``ops/bitpack.py``): `encode_payload`, and the batched packer in
+  `batch_encode_streams` / `batch_encode`;
+* ``CNIIC_DEVICE_HUF_DECODE=1``: the payload is decoded by the chunked
+  self-synchronizing decoder D2 (``ops/hufdec.py``) first; where it declines
+  (returns None) the host decoder runs, exactly where the reference's does.
+
+On a CPU device the gates run the kernels' plain versions, so the CPU tests
+cover them. ``device`` in `encode_payload` / `encode_stream` keeps the
+reference's meaning: False selects the numpy oracle instead of a packer.
 
 Wire format is byte-identical to the reference: the decoder trie serialized
 preorder (tag 0 = leaf + payload, 1 = branch; huf.rs:296-321) followed by the
@@ -23,14 +34,16 @@ from dataclasses import dataclass
 import numpy as np
 
 from . import native, trace
+from .ops.bitpack import pack_bits_numpy
+
+__all__ = ["Codebook", "pack_bits_numpy", "build_codebook", "serialize_tree",
+           "parse_tree", "encode_payload", "decode_payload", "encode_stream",
+           "batch_arrays", "batch_encode_streams", "batch_encode",
+           "decode_stream"]
 
 
-def _refuse_device_paths() -> None:
-    for flag in ("CNIIC_DEVICE_BITPACK", "CNIIC_DEVICE_HUF_DECODE"):
-        if os.environ.get(flag, "") == "1":
-            raise NotImplementedError(
-                f"{flag}=1 (device Huffman path) is not ported yet to "
-                "cniic_tpu_torch; unset it to use the host C path")
+def _gate(flag: str) -> bool:
+    return os.environ.get(flag, "") == "1"
 
 
 @dataclass
@@ -45,20 +58,6 @@ class Codebook:
     @property
     def n_symbols(self) -> int:
         return self.codes.size
-
-
-def pack_bits_numpy(codes: np.ndarray, lens: np.ndarray) -> bytes:
-    """Reference (host) implementation: codes u64, lens per symbol."""
-    lens = lens.astype(np.int64)
-    total = int(lens.sum())
-    if total == 0:
-        return b""
-    sym_of_bit = np.repeat(np.arange(lens.size, dtype=np.int64), lens)
-    offs = np.concatenate([[0], np.cumsum(lens)])
-    pos_in_code = np.arange(total, dtype=np.int64) - offs[sym_of_bit]
-    shift = (lens[sym_of_bit] - 1 - pos_in_code).astype(np.uint64)
-    bits = ((codes[sym_of_bit] >> shift) & np.uint64(1)).astype(np.uint8)
-    return np.packbits(bits).tobytes()
 
 
 def build_codebook(freqs: np.ndarray) -> Codebook:
@@ -87,22 +86,42 @@ def parse_tree(data, leaf_size: int):
     return left, right, symbol, payloads, consumed
 
 
-def encode_payload(symbol_ids: np.ndarray, book: Codebook,
-                   device: bool = True) -> bytes:
-    """Pack the symbol stream with the codebook: the native C packer, or
-    with device=False the vectorized-numpy oracle."""
-    _refuse_device_paths()
+def _total_bits(freqs, book: Codebook) -> int:
+    """Payload size in bits (sum freq * len), known before any packing."""
+    return int(np.asarray(freqs, np.uint64) @ book.lens)
+
+
+def encode_payload(symbol_ids: np.ndarray, book: Codebook, device: bool = True,
+                   total_bits: int | None = None,
+                   torch_device="cuda") -> bytes:
+    """Pack the symbol stream with the codebook: the native C packer, D1 on
+    `torch_device` under CNIIC_DEVICE_BITPACK=1, or with device=False the
+    vectorized-numpy oracle."""
     if symbol_ids.size == 0:
         return b""
     if not device:
         return pack_bits_numpy(book.codes[symbol_ids], book.lens[symbol_ids])
+    if _gate("CNIIC_DEVICE_BITPACK"):
+        from .ops import bitpack
+
+        return bitpack.pack_bits_device(symbol_ids.astype(np.int32),
+                                        book.codes, book.lens, total_bits,
+                                        device=torch_device)
     return native.pack_bits(book.codes, book.lens, symbol_ids)
 
 
-def decode_payload(payload, left, right, symbol, n_symbols: int) -> np.ndarray:
-    """Decode the payload into preorder-leaf ids (native 16-bit
-    prefix-table decoder)."""
-    _refuse_device_paths()
+def decode_payload(payload, left, right, symbol, n_symbols: int,
+                   torch_device="cuda") -> np.ndarray:
+    """Decode the payload into preorder-leaf ids: the native 16-bit
+    prefix-table decoder, after D2 on `torch_device` under
+    CNIIC_DEVICE_HUF_DECODE=1 where D2 declines."""
+    if _gate("CNIIC_DEVICE_HUF_DECODE"):
+        from .ops import hufdec
+
+        out = hufdec.decode_payload_device(payload, left, right, symbol,
+                                           n_symbols, device=torch_device)
+        if out is not None:
+            return out
     out = native.huf_decode(payload, left, right, symbol, 0, n_symbols)
     if out.size != n_symbols:
         raise ValueError(f"Huffman payload exhausted: {out.size}/{n_symbols} symbols")
@@ -110,33 +129,100 @@ def decode_payload(payload, left, right, symbol, n_symbols: int) -> np.ndarray:
 
 
 def encode_stream(symbol_ids: np.ndarray, freqs: np.ndarray,
-                  leaf_payloads: np.ndarray, device: bool = True) -> bytes:
+                  leaf_payloads: np.ndarray, device: bool = True,
+                  torch_device="cuda") -> bytes:
     """Full huf::encode_all analog (huf.rs:22-43): tree bytes + packed payload."""
     book = build_codebook(freqs)
     return serialize_tree(book, leaf_payloads) + encode_payload(
-        symbol_ids, book, device=device)
+        symbol_ids, book, device=device, total_bits=_total_bits(freqs, book),
+        torch_device=torch_device)
 
 
-def batch_encode_streams(ids_list, freqs_list, leafs_list) -> list[bytes]:
-    """Batched encode_all for pre-resolved symbol streams, one stream end to
-    end at a time (tree + C pack).
+def batch_arrays(ids_list, freqs_list, books):
+    """The batched packer's host arrays for B streams: ids int32 [B, n_max]
+    (padded), codes u64 and lens u32 [B, max(u) + 1], and each stream's
+    payload bits. The column past the largest alphabet is zero: each
+    stream's padding ids point at its own first unused entry (u_i), a
+    zero-length code."""
+    B = len(ids_list)
+    ids = np.empty((B, max(i.size for i in ids_list)), dtype=np.int32)
+    u_pad = max(f.size for f in freqs_list) + 1
+    codes = np.zeros((B, u_pad), dtype=np.uint64)
+    lens = np.zeros((B, u_pad), dtype=np.uint32)
+    total_bits = []
+    for i, (sym, freqs, book) in enumerate(zip(ids_list, freqs_list, books)):
+        u = freqs.size
+        codes[i, :u] = book.codes
+        lens[i, :u] = book.lens
+        ids[i, : sym.size] = sym
+        ids[i, sym.size:] = u
+        total_bits.append(_total_bits(freqs, book))
+    return ids, codes, lens, total_bits
+
+
+def batch_encode_streams(ids_list, freqs_list, leafs_list,
+                         torch_device="cuda") -> list[bytes]:
+    """Batched encode_all for pre-resolved symbol streams.
+
+    Host default: each stream end to end (tree + C pack) before the next.
+    Under CNIIC_DEVICE_BITPACK=1: the trees on the host, then every payload
+    in one D1 launch on `torch_device` (ops/bitpack.pack_bits_batch).
 
     ids_list: per-stream int arrays of symbol ids (< the stream's alphabet).
     freqs_list: per-stream symbol frequencies (the codebook input).
     leafs_list: per-stream uint8[u, leaf_size] wire payloads per symbol.
     """
-    _refuse_device_paths()
-    out = []
-    with trace.span("huffman.encode"):
-        for sym, freqs, leafs in zip(ids_list, freqs_list, leafs_list):
+    if not ids_list:
+        return []
+    if not _gate("CNIIC_DEVICE_BITPACK"):
+        out = []
+        with trace.span("huffman.encode"):
+            for sym, freqs, leafs in zip(ids_list, freqs_list, leafs_list):
+                book = build_codebook(freqs)
+                out.append(serialize_tree(book, leafs) +
+                           native.pack_bits(book.codes, book.lens,
+                                            np.asarray(sym, np.int32)))
+        return out
+    from .ops import bitpack
+
+    books = []
+    trees = []
+    with trace.span("huffman.trees"):
+        for freqs, leafs in zip(freqs_list, leafs_list):
             book = build_codebook(freqs)
-            out.append(serialize_tree(book, leafs) +
-                       native.pack_bits(book.codes, book.lens,
-                                        np.asarray(sym, np.int32)))
-    return out
+            books.append(book)
+            trees.append(serialize_tree(book, leafs))
+
+    with trace.span("huffman.pack"):
+        ids, codes, lens, total_bits = batch_arrays(ids_list, freqs_list,
+                                                    books)
+        payloads = bitpack.pack_bits_batch(ids, codes, lens, total_bits,
+                                           device=torch_device)
+    return [t + p for t, p in zip(trees, payloads)]
 
 
-def decode_stream(data, leaf_size: int, n_symbols: int):
+def batch_encode(keys_list, uniq_to_payload, torch_device="cuda") -> list[bytes]:
+    """Batched Huffman encode (tree bytes + packed payload per stream).
+
+    keys_list: per-stream uint32 symbol-key arrays (values < 2^31-1).
+    uniq_to_payload: fn(uniq_keys uint32[u]) -> uint8[u, leaf_size] wire
+    payloads for the tree leaves.
+
+    The statistics run in the host C radix histogram; the packing goes
+    through `batch_encode_streams` (D1 under CNIIC_DEVICE_BITPACK=1).
+    """
+    stats = []
+    with trace.span("huffman.stats"):
+        for k in keys_list:
+            stats.append(native.hist_u32(k))
+    return batch_encode_streams(
+        [inv for (_, _, inv) in stats],
+        [counts for (_, counts, _) in stats],
+        [uniq_to_payload(uniq) for (uniq, _, _) in stats],
+        torch_device=torch_device)
+
+
+def decode_stream(data, leaf_size: int, n_symbols: int, torch_device="cuda"):
     """Full huf::decode_all analog: returns (payloads uint8[u, leaf_size],
     decoded leaf-ids int32[n_symbols])."""
     left, right, symbol, payloads, consumed = parse_tree(data, leaf_size)
@@ -149,5 +235,6 @@ def decode_stream(data, leaf_size: int, n_symbols: int):
     if body.size and n_symbols > 8 * body.size:
         raise ValueError(
             f"Huffman stream too short for {n_symbols} symbols")
-    ids = decode_payload(body, left, right, symbol, n_symbols)
+    ids = decode_payload(body, left, right, symbol, n_symbols,
+                         torch_device=torch_device)
     return payloads, ids

@@ -5,7 +5,8 @@ points the ported codecs reach: for the k-means codecs the histograms,
 Huffman tree and bit packing, Rgb framing, gathers and the MSE sum; for the
 Hilbert family the curve generator, the row gathers and scatters, the RLE
 framing and fused decode, zip-dict and the exact-f64 approximate-RLE
-engine. The C source is the reference's one
+engine; for delta the diff keys, the fused gather+diff+histogram pass and
+the fused decode; zip-back for `zip(back)`. The C source is the reference's one
 file, compiled by path into this package's ``_build/`` directory (never next
 to the JAX package's own library) and rebuilt whenever the source is newer.
 All entry points release the GIL for the duration of the call (plain ctypes
@@ -58,12 +59,15 @@ def _load() -> ctypes.CDLL:
     lib.huf_decode.restype = i64
     lib.huf_decode_fast.argtypes = lib.huf_decode.argtypes
     lib.huf_decode_fast.restype = i64
-    lib.zip_dict_encode.argtypes = [u8p, i64, ctypes.POINTER(u8p),
-                                    ctypes.POINTER(i64)]
-    lib.zip_dict_encode.restype = ctypes.c_int
-    lib.zip_dict_decode.argtypes = [u8p, i64, ctypes.POINTER(u8p),
-                                    ctypes.POINTER(i64), i64]
-    lib.zip_dict_decode.restype = ctypes.c_int
+    for name in ("zip_dict_encode", "zip_back_encode"):
+        fn = getattr(lib, name)
+        fn.argtypes = [u8p, i64, ctypes.POINTER(u8p), ctypes.POINTER(i64)]
+        fn.restype = ctypes.c_int
+    for name in ("zip_dict_decode", "zip_back_decode"):
+        fn = getattr(lib, name)
+        fn.argtypes = [u8p, i64, ctypes.POINTER(u8p), ctypes.POINTER(i64),
+                       i64]
+        fn.restype = ctypes.c_int
 
     lib.approx_rle_encode.argtypes = [u8p, i64, ctypes.c_double, u8p, u8p]
     lib.approx_rle_encode.restype = i64
@@ -105,6 +109,14 @@ def _load() -> ctypes.CDLL:
     lib.pack_bits.restype = i64
     lib.hist_rgb.argtypes = [u8p, i64, u32p, i64p, i32p]
     lib.hist_rgb.restype = i64
+    lib.delta_keys.argtypes = [u8p, i64, u32p]
+    lib.delta_keys.restype = None
+    lib.delta_keys_gather.argtypes = [u8p, i64p, i64, u32p]
+    lib.delta_keys_gather.restype = None
+    lib.delta_hist_gather.argtypes = [u8p, i64p, i64, u32p, i64p, i32p]
+    lib.delta_hist_gather.restype = i64
+    lib.delta_unpack.argtypes = [u8p, i64, i32p, i64, i64p, u8p]
+    lib.delta_unpack.restype = ctypes.c_int
     lib.mse_sum_u8.argtypes = [u8p, u8p, i64]
     lib.mse_sum_u8.restype = ctypes.c_uint64
 
@@ -125,6 +137,10 @@ def _as_i32p(arr: np.ndarray):
 
 def _as_i64p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _as_u32p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
 
 
 def gilbert_curve(w: int, h: int) -> np.ndarray:
@@ -346,6 +362,72 @@ def huf_tree_parse(data, leaf_size: int):
     return (left, right, symbol, payloads, int(n), int(consumed.value))
 
 
+def delta_keys(scan: np.ndarray) -> np.ndarray:
+    """Packed (d+255) 9-bit-per-channel diff keys of an (N, 3) uint8 scan."""
+    lib = _load()
+    scan = np.ascontiguousarray(scan, dtype=np.uint8)
+    out = np.empty(scan.shape[0], dtype=np.uint32)
+    lib.delta_keys(_as_u8p(scan), scan.shape[0], _as_u32p(out))
+    return out
+
+
+def delta_keys_gather(flat: np.ndarray, perm: np.ndarray) -> np.ndarray:
+    """delta_keys fused with the curve gather: keys of flat[perm] without
+    materializing the (N, 3) scan."""
+    lib = _load()
+    flat = np.ascontiguousarray(flat, dtype=np.uint8)
+    perm = np.ascontiguousarray(perm, dtype=np.int64)
+    if flat.shape[0] != perm.size:
+        raise ValueError("flat/perm length mismatch")
+    out = np.empty(perm.size, dtype=np.uint32)
+    lib.delta_keys_gather(_as_u8p(flat), _as_i64p(perm), perm.size,
+                          _as_u32p(out))
+    return out
+
+
+def delta_hist_gather(flat: np.ndarray, perm: np.ndarray):
+    """(uniq asc, counts i64, inverse i32) of the delta diff keys of
+    flat[perm]: curve gather + diff + pack + histogram fused in one C pass.
+    Output-identical to hist_u32(delta_keys_gather(flat, perm))."""
+    lib = _load()
+    flat = np.ascontiguousarray(flat, dtype=np.uint8)
+    perm = np.ascontiguousarray(perm, dtype=np.int64)
+    n = perm.size
+    if flat.shape[0] != n:
+        raise ValueError("flat/perm length mismatch")
+    uniq = np.empty(n, dtype=np.uint32)
+    counts = np.empty(n, dtype=np.int64)
+    inverse = np.empty(n, dtype=np.int32)
+    u = lib.delta_hist_gather(_as_u8p(flat), _as_i64p(perm), n,
+                              _as_u32p(uniq), _as_i64p(counts),
+                              _as_i32p(inverse))
+    if u < 0:
+        raise MemoryError("delta_hist_gather failed")
+    return uniq[:u].copy(), counts[:u].copy(), inverse
+
+
+def delta_unpack(payloads: np.ndarray, ids: np.ndarray,
+                 perm: np.ndarray) -> np.ndarray:
+    """Fused delta decode: 6-byte i16-LE leaves + symbol ids -> running
+    3-channel sums scattered through perm into a (len(perm), 3) uint8
+    image, range-checked, in one C pass."""
+    lib = _load()
+    payloads = np.ascontiguousarray(payloads, dtype=np.uint8).reshape(-1, 6)
+    ids = np.ascontiguousarray(ids, dtype=np.int32)
+    perm = np.ascontiguousarray(perm, dtype=np.int64)
+    if ids.size != perm.size:
+        raise ValueError("ids/perm length mismatch")
+    out = np.empty((perm.size, 3), dtype=np.uint8)
+    rc = lib.delta_unpack(_as_u8p(payloads), payloads.shape[0],
+                          _as_i32p(ids), ids.size, _as_i64p(perm),
+                          _as_u8p(out))
+    if rc == -1:
+        raise ValueError("delta symbol id out of range")
+    if rc == -2:
+        raise ValueError("delta decode out of u8 range")
+    return out
+
+
 def rle_unframe_scatter(recs: np.ndarray, perm: np.ndarray) -> np.ndarray:
     """Fused RLE decode: validate 12-byte records, expand runs and scatter
     through perm into a (len(perm), 3) uint8 image in one C pass. Raises on
@@ -367,7 +449,7 @@ def rle_unframe_scatter(recs: np.ndarray, perm: np.ndarray) -> np.ndarray:
 
 # absolute wire-format maximum any legitimate zipc stream decodes to:
 # 8 dim bytes + 11 bytes/pixel at the framework's 2^27-pixel cap. A
-# crafted LZ78 stream can otherwise demand unbounded output from a few
+# crafted LZ78/LZ77 stream can otherwise demand unbounded output from a few
 # hundred input bytes.
 _ZIP_MAX_OUT = 8 + 11 * (1 << 27)
 
@@ -401,6 +483,14 @@ def zip_dict_encode(data) -> bytes:
 
 def zip_dict_decode(data, max_out: int = _ZIP_MAX_OUT) -> bytes:
     return _roundtrip_call("zip_dict_decode", data, max_out)
+
+
+def zip_back_encode(data) -> bytes:
+    return _roundtrip_call("zip_back_encode", data)
+
+
+def zip_back_decode(data, max_out: int = _ZIP_MAX_OUT) -> bytes:
+    return _roundtrip_call("zip_back_decode", data, max_out)
 
 
 def gather_rgb(rgb: np.ndarray, perm: np.ndarray) -> np.ndarray:

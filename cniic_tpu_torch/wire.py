@@ -249,7 +249,7 @@ class BitWriter:
     ``pad_and_flush`` zero-padding of the tail (bit.rs:243-253).
 
     Used for small host-side streams and as the parity oracle for the
-    vectorized TPU bit-packer in :mod:`cniic_tpu.ops.bitpack`.
+    vectorized bit packer D1 in :mod:`cniic_tpu_torch.ops.bitpack`.
     """
 
     __slots__ = ("_out", "_cur", "_count")

@@ -1,8 +1,7 @@
-"""The port's k-means and Hilbert codecs against the JAX package, on the CPU.
+"""The port's nine codec families against the JAX package, on the CPU.
 
-* `cluster-colors(16|32)`, `voronoi(64|128)`, `hilbert(rle)`,
-  `hilbert(rle(4|16))` and `hilbert(zip)` reproduce the golden frontier pins
-  of tests/test_golden_frontier.py (imported, not copied);
+* all 12 configs of tests/test_golden_frontier.py reproduce its golden
+  frontier pins (imported, not copied);
 * their streams equal `cniic_tpu`'s byte for byte, and each package decodes
   the other's streams to the same image; under CNIIC_CHUNKED_RLE=1 the
   approximate-RLE streams are unchanged, and under CNIIC_PALLAS_RLE=1
@@ -10,9 +9,12 @@
 * `encode_batch` equals per-image `encode`, and the fused voronoi
   decode+MSE equals decode + `compute_error`;
 * truncated and garbage Hilbert streams are rejected;
-* the registry keeps the reference's parse order and refuses what is not
-  ported yet, and a CUDA device with no card is refused, never replaced by
-  the CPU.
+* under CNIIC_DEVICE_BITPACK=1 and CNIIC_DEVICE_HUF_DECODE=1 the Hufman,
+  delta and cluster-colors streams and decodes equal the ungated ones and
+  JAX's under the same gate;
+* the registry keeps the reference's parse order, classes, names and
+  refusals (`specs.AllFailed`, with JAX's text), and a CUDA device with no
+  card is refused, never replaced by the CPU.
 """
 
 import time
@@ -21,16 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+from cniic_tpu import codecs as jax_codecs
+from cniic_tpu import specs as jax_specs
 from cniic_tpu.codecs import from_spec as jax_from_spec
-from cniic_tpu_torch import huffman, wire
-from cniic_tpu_torch.codecs import ClusterColors, Hilbert, VoronoiCluster, from_spec
-from cniic_tpu_torch.ops import approx_rle
+from cniic_tpu_torch import codecs, huffman, specs, wire
+from cniic_tpu_torch.codecs import from_spec
+from cniic_tpu_torch.ops import approx_rle, bitpack, hufdec
 from cniic_tpu_torch.runner import compute_error
-from test_golden_frontier import GOLDEN, _synth
-
-SPECS = ["cluster-colors(16)", "cluster-colors(32)", "voronoi(64)",
-         "voronoi(128)", "hilbert(rle)", "hilbert(rle(4))",
-         "hilbert(rle(16))", "hilbert(zip)"]
+from test_golden_frontier import GOLDEN, SPECS, _synth
 
 
 @pytest.fixture(scope="module")
@@ -155,22 +155,26 @@ def test_hilbert_streams_follow_the_curve(corpus, monkeypatch):
                 from_spec(spec, device="cpu").decode(data), img)
 
 
-def test_registry_parse_order_and_unported_specs():
-    assert isinstance(from_spec("cluster-colors(8)", device="cpu"), ClusterColors)
-    assert isinstance(from_spec("ccol(8)", device="cpu"), ClusterColors)
-    v = from_spec("voronoi(9)", device="cpu")
-    assert isinstance(v, VoronoiCluster) and v.n == 9
-    assert v.name == jax_from_spec("voronoi(9)").name
-    for spec in ("hilbert(rle)", "Hilbert(rle(2.5))", "hilbert(rle(4))",
-                 "hilbert(zip)"):
-        h = from_spec(spec, device="cpu")
-        assert isinstance(h, Hilbert) and h.device.type == "cpu"
-        assert h.name == jax_from_spec(spec).name
-        assert h.is_lossless == jax_from_spec(spec).is_lossless
-    for spec in ("hufman", "delta", "zip(dict)", "bogus", "hilbert(foo)",
-                 "hilbert(rle(x))"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+@pytest.mark.parametrize("spec", list(jax_codecs.ALL_SPECS)
+                         + ["HUFMAN", "ccol(8)", "Hilbert(rle(2.5))"])
+def test_registry_matches_jax(spec):
+    port = from_spec(spec, device="cpu")
+    ref = jax_from_spec(spec)
+    assert type(port).__name__ == type(ref).__name__
+    assert type(port) is getattr(codecs, type(ref).__name__)
+    assert port.name == ref.name
+    assert port.is_lossless == ref.is_lossless
+    assert port.device.type == "cpu"
+
+
+def test_registry_refusals_match_jax():
+    assert codecs.ALL_SPECS == jax_codecs.ALL_SPECS
+    for spec in ("bogus", "hilbert(foo)", "zip(foo)", "hilbert(rle(x))"):
+        with pytest.raises(jax_specs.AllFailed) as want:
+            jax_from_spec(spec)
+        with pytest.raises(specs.AllFailed) as got:
             from_spec(spec, device="cpu")
+        assert str(got.value) == str(want.value), spec
 
 
 def test_cuda_device_refused_without_a_card():
@@ -189,14 +193,40 @@ def test_cuda_device_refused_without_a_card():
 
 @pytest.mark.parametrize("flag", ["CNIIC_DEVICE_BITPACK",
                                   "CNIIC_DEVICE_HUF_DECODE"])
-def test_device_huffman_flags_not_ported(monkeypatch, corpus, flag):
-    codec = from_spec("cluster-colors(8)", device="cpu")
-    data = codec.encode(corpus[2])
+@pytest.mark.parametrize("spec", ["hufman", "delta", "cluster-colors(8)"])
+def test_device_huffman_gates_match_ungated_and_jax(monkeypatch, corpus,
+                                                     flag, spec):
+    """Each Huffman gate on a CPU device runs its kernel's plain version
+    (D1 packs the payload, D2 decodes it): streams and decodes equal the
+    ungated ones and JAX's under the same gate."""
+    port = from_spec(spec, device="cpu")
+    ref = jax_from_spec(spec)
+    imgs = [np.ascontiguousarray(im[:64, :80]) for im in corpus]
+    imgs[1] = imgs[1][:48, :56].copy()
+    ungated = [port.encode(im) for im in imgs]
+    ungated_dec = [port.decode(s) for s in ungated]
+    calls = []
+    for mod, name in ((bitpack, "pack_words_ref"), (hufdec, "walk_ref")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, name, spy)
     monkeypatch.setenv(flag, "1")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        codec.encode(corpus[2])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        codec.decode(data)
+    declines = hufdec.declines
+    got = port.encode_batch(imgs)
+    assert got == ungated
+    assert got == ref.encode_batch(imgs)
+    assert [port.encode(im) for im in imgs] == ungated
+    for data, want in zip(got, ungated_dec):
+        dec = port.decode(data)
+        np.testing.assert_array_equal(dec, want)
+        np.testing.assert_array_equal(dec, ref.decode(data))
+    used = "pack_words_ref" if flag == "CNIIC_DEVICE_BITPACK" else "walk_ref"
+    assert used in calls and len(set(calls)) == 1
+    assert hufdec.declines == declines
 
 
 def test_numpy_bit_packer_matches_native():
@@ -206,3 +236,60 @@ def test_numpy_bit_packer_matches_native():
     book = huffman.build_codebook(freqs)
     assert (huffman.encode_payload(ids, book, device=False)
             == huffman.encode_payload(ids, book))
+
+
+def test_delta_and_zip_back_bindings_match_jax():
+    """The delta and zip-back entry points of the port's native module give
+    the JAX package's outputs and raise where they raise."""
+    from cniic_tpu import native as jax_native
+    from cniic_tpu_torch import native
+
+    rng = np.random.default_rng(21)
+    flat = rng.integers(0, 256, (5000, 3)).astype(np.uint8)
+    flat[:2000] = flat[:2000] // 64 * 64  # a low-unique stretch
+    perm = rng.permutation(5000).astype(np.int64)
+    keys = native.delta_keys_gather(flat, perm)
+    np.testing.assert_array_equal(keys, jax_native.delta_keys_gather(flat, perm))
+    np.testing.assert_array_equal(keys, native.delta_keys(flat[perm]))
+    for got, want in zip(native.delta_hist_gather(flat, perm),
+                         native.hist_u32(keys)):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="length mismatch"):
+        native.delta_keys_gather(flat[:10], perm)
+    payloads = np.zeros((2, 6), np.uint8)
+    payloads[1, ::2] = 200  # +200 on every channel
+    ids = np.array([1, 1, 0], np.int32)
+    with pytest.raises(ValueError, match="out of u8 range"):
+        native.delta_unpack(payloads, ids, np.arange(3))
+    with pytest.raises(ValueError, match="out of range"):
+        native.delta_unpack(payloads, np.array([0, 2, 0], np.int32),
+                            np.arange(3))
+    raw = flat.tobytes()
+    packed = native.zip_back_encode(raw)
+    assert packed == jax_native.zip_back_encode(raw)
+    assert native.zip_back_decode(packed) == raw
+    with pytest.raises(ValueError, match="cap"):
+        native.zip_back_decode(packed, max_out=len(raw) - 1)
+
+
+def test_delta_fallback_stats_and_wire_errors(corpus):
+    """A non-contiguous image takes delta's unfused statistics path and
+    still gives JAX's stream; a decode that leaves the u8 range raises
+    WireError, as in JAX."""
+    port = from_spec("delta", device="cpu")
+    ref = jax_from_spec("delta")
+    view = corpus[2][:, ::-1]
+    assert not view.flags.c_contiguous
+    data = port.encode(view)
+    assert data == ref.encode(view) == port.encode(view.copy())
+    np.testing.assert_array_equal(port.decode(data), view)
+    # one 2x1 image whose second pixel would be 250 + 250
+    leafs = wire.i16_triplets_to_wire(
+        np.array([[250, 250, 250]], np.int16)).reshape(1, 6)
+    stream = huffman.encode_stream(np.zeros(2, np.int32), np.array([2]),
+                                   leafs, torch_device="cpu")
+    bad = wire.pack_dims(2, 1) + stream
+    for codec in (port, ref):
+        with pytest.raises(wire.WireError if codec is port else Exception,
+                           match="u8 range"):
+            codec.decode(bad)

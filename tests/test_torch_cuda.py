@@ -1,6 +1,6 @@
-"""Card-only checks of the PyTorch port: K1, K2 and K3 on the card against
-their plain versions, and the k-means codecs and the gated Hilbert codecs on
-the card against the CPU path.
+"""Card-only checks of the PyTorch port: K1, K2, K3, D1 and D2 on the card
+against their plain versions, and the k-means codecs, the gated Hilbert
+codecs and the gated Huffman codecs on the card against the CPU path.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from cniic_tpu_torch import huffman, native
 from cniic_tpu_torch.codecs import from_spec
 from cniic_tpu_torch.ops import approx_rle as trle
+from cniic_tpu_torch.ops import bitpack, hufdec
 from cniic_tpu_torch.ops import kmeans as tkm
 from cniic_tpu_torch.ops import kmeans_kernel as tkk
 from torch_rle_cases import TIE, fma_batch, make_batch
@@ -163,3 +165,141 @@ def test_gated_hilbert_codecs_match_cpu(cuda, monkeypatch, gate):
         on_card = from_spec(spec, device="cuda").encode_batch(imgs)
         assert counter.launches > before
         assert on_card == from_spec(spec, device="cpu").encode_batch(imgs)
+
+
+def _books(rng, B, u_max, deep=False):
+    """B ragged codebooks [B, u_pad] (hi, lo, lens as int32 tensors) and id
+    streams [B, n] padded with a zero-length entry; one codebook reaches
+    63-bit codes when `deep`."""
+    us = [int(rng.integers(2, u_max)) for _ in range(B)]
+    if deep:
+        us[0] = 64
+    u_pad = max(us) + 1
+    n = 5000
+    codes = np.zeros((B, u_pad), np.uint64)
+    lens = np.zeros((B, u_pad), np.uint32)
+    ids = np.zeros((B, n), np.int32)
+    for b, u in enumerate(us):
+        freqs = (2 ** np.arange(u, dtype=np.uint64) if deep and b == 0
+                 else rng.integers(1, 1000, u).astype(np.uint64))
+        book = huffman.build_codebook(freqs)
+        codes[b, :u], lens[b, :u] = book.codes, book.lens
+        m = n - 37 * b
+        ids[b, :m] = rng.integers(0, u, m)
+        ids[b, m:] = u
+    if deep:
+        assert lens.max() == 63
+    hi = (codes >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = codes.astype(np.uint32).view(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (ids, hi, lo, lens.astype(np.int32))], codes, lens, us
+
+
+@pytest.mark.parametrize("deep", [False, True])
+def test_d1_matches_plain_version(cuda, deep):
+    rng = np.random.default_rng(5)
+    ops, codes, lens, us = _books(rng, 4, 300, deep)
+    n_words = 2 * ops[0].shape[1] + 2
+    want = bitpack.pack_words_ref(*ops, n_words)
+    before = bitpack.pack_words.launches
+    got = bitpack.pack_words(*[t.to(cuda) for t in ops], n_words)
+    torch.cuda.synchronize()
+    assert bitpack.pack_words.launches == before + 1
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    ids = ops[0].numpy()
+    out = bitpack.pack_bits_batch(ids, codes, lens, device="cuda")
+    for b, u in enumerate(us):
+        assert out[b] == native.pack_bits(codes[b, :u], lens[b, :u],
+                                          ids[b][ids[b] < u])
+
+
+def _hufdec_stream(rng, freqs, n):
+    ids = rng.integers(0, freqs.size, n)
+    book = huffman.build_codebook(freqs)
+    tree = huffman.serialize_tree(book, np.zeros((freqs.size, 1), np.uint8))
+    payload = huffman.encode_payload(ids.astype(np.int32), book)
+    left, right, symbol, _, _ = huffman.parse_tree(
+        np.frombuffer(tree, np.uint8), 1)
+    return payload, left, right, symbol, n
+
+
+@pytest.mark.parametrize("u,n", [(300, 40_000), (2, 30_000), (4096, 60_000)])
+def test_d2_matches_plain_version(cuda, u, n):
+    rng = np.random.default_rng(u)
+    freqs = rng.integers(1, 1000, u).astype(np.uint64)
+    payload, left, right, symbol, n = _hufdec_stream(rng, freqs, n)
+    pay = torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
+    lr2 = torch.from_numpy(hufdec._lr2(left, right, symbol))
+    L = 3 * hufdec.E
+    starts = torch.arange(L, dtype=torch.int32) * 97
+    ends = torch.clamp(starts + 4096, max=8 * len(payload))
+    want = hufdec.walk_ref(pay, lr2, starts, ends, 8 * len(payload))
+    before = hufdec.walk.launches
+    got = hufdec.walk(pay.to(cuda), lr2.to(cuda), starts.to(cuda),
+                      ends.to(cuda), 8 * len(payload))
+    assert hufdec.walk.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert got[2] == want[2]
+    host = native.huf_decode(payload, left, right, symbol, 0, n)
+    dec = hufdec.decode_payload_device(payload, left, right, symbol, n,
+                                       device="cuda")
+    np.testing.assert_array_equal(dec, host)
+    np.testing.assert_array_equal(
+        hufdec.decode_payload_device(payload, left, right, symbol, n,
+                                     device="cpu"), host)
+
+
+def test_d2_deep_codes_decline_like_plain_version(cuda):
+    rng = np.random.default_rng(3)
+    freqs = (2.0 ** np.arange(40)).astype(np.uint64)
+    stream = _hufdec_stream(rng, freqs, 30_000)
+    on_card = hufdec.decode_payload_device(*stream, device="cuda")
+    on_cpu = hufdec.decode_payload_device(*stream, device="cpu")
+    assert (on_card is None) == (on_cpu is None)
+    if on_card is not None:
+        np.testing.assert_array_equal(on_card, on_cpu)
+
+
+def test_huffman_wrappers_refuse_before_launch(cuda):
+    ops = _books(np.random.default_rng(1), 2, 50)[0]
+    ops = [t.to(cuda) for t in ops]
+    before = (bitpack.pack_words.launches, hufdec.walk.launches)
+    bad = ops[0].clone()
+    bad[0, 0] = 10_000
+    with pytest.raises(ValueError):
+        bitpack.pack_words(bad, *ops[1:], 100)
+    with pytest.raises(ValueError):
+        bitpack.pack_words(ops[0], ops[1].cpu(), *ops[2:], 100)
+    pay = torch.zeros(600, dtype=torch.uint8, device=cuda)
+    lr2 = torch.tensor([-1, -2], dtype=torch.int32, device=cuda)
+    st = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        hufdec.walk(pay, lr2, st, st, 8 * 600 + 1)
+    with pytest.raises(TypeError):
+        hufdec.walk(pay, lr2, st.long(), st, 8 * 600)
+    assert (bitpack.pack_words.launches, hufdec.walk.launches) == before
+
+
+@pytest.mark.parametrize("gate", ["CNIIC_DEVICE_BITPACK",
+                                  "CNIIC_DEVICE_HUF_DECODE"])
+def test_gated_huffman_codecs_match_cpu(cuda, monkeypatch, gate):
+    rng = np.random.default_rng(13)
+    imgs = [np.clip(rng.integers(0, 60, 3) + rng.integers(
+        -3, 4, (h, w, 3)).cumsum(1), 0, 255).astype(np.uint8)
+        for h, w in ((64, 80), (48, 90), (40, 40))]
+    monkeypatch.setenv(gate, "1")
+    counter = (bitpack.pack_words if gate == "CNIIC_DEVICE_BITPACK"
+               else hufdec.walk)
+    for spec in ("hufman", "delta", "cluster-colors(8)"):
+        on_card = from_spec(spec, device="cuda")
+        on_cpu = from_spec(spec, device="cpu")
+        before = counter.launches
+        streams = on_card.encode_batch(imgs)
+        assert streams == on_cpu.encode_batch(imgs)
+        for im, s in zip(imgs, streams):
+            dec = on_card.decode(s)
+            np.testing.assert_array_equal(dec, on_cpu.decode(s))
+            if on_card.is_lossless:
+                np.testing.assert_array_equal(dec, im)
+        assert counter.launches > before, spec

@@ -5,7 +5,8 @@
 * the stdlib PNG reader and writer agree with PIL both ways, over gray, RGB
   and RGBA and every filter type;
 * `runner.measure_all` writes byte-identical CSVs in both packages;
-* the CLI runs with `--device cpu` and refuses `--device cuda` with no card.
+* the CLI runs with `--device cpu`, calls an unknown spec malformed and
+  refuses `--device cuda` with no card, for every codec family.
   (`--special=hilbert` is held against the JAX CLI in test_torch_hilbert.py.)
 """
 
@@ -170,7 +171,10 @@ def pngs(tmp_path):
 @pytest.mark.parametrize("spec,batch", [("cluster-colors(8)", 1),
                                         ("voronoi(12)", 2),
                                         ("hilbert(rle(4))", 2),
-                                        ("hilbert(zip)", 1)])
+                                        ("hilbert(zip)", 1),
+                                        ("hufman", 2),
+                                        ("delta", 1),
+                                        ("zip(back)", 2)])
 def test_measure_all_csv_identical(pngs, tmp_path, spec, batch):
     rj = jax_runner.measure_all(jax_from_spec(spec), pngs,
                                 output_dir=str(tmp_path / "jax"),
@@ -203,18 +207,24 @@ def test_cli_runs_on_cpu(pngs, tmp_path, monkeypatch, capsys):
     assert cli.main(["--codec=ccol(8)", "--device=cpu", pngs[0]]) == 0
     assert cli.main(["--codec=hilbert(rle(4))", "--device", "cpu"] + pngs) == 0
     assert (tmp_path / "output" / "hilbert-rle-approx_4.csv").exists()
+    for spec, name in (("hufman", "Hufman"), ("delta", "delta"),
+                       ("zip(dict)", "zip-dict"), ("zip(back)", "zip-back")):
+        assert cli.main([f"--codec={spec}", "--device", "cpu"] + pngs) == 0
+        assert (tmp_path / "output" / f"{name}.csv").exists()
 
 
 def test_cli_refusals(pngs, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     assert cli.main([]) == 1
-    assert cli.main(["--codec=hufman", "--device", "cpu", pngs[0]]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    assert cli.main(["--codec=bogus", "--device", "cpu", pngs[0]]) == 1
+    err = capsys.readouterr().err
+    assert "Malformed codec argument" in err and "Device unavailable" not in err
     assert cli.main(["--codec=voronoi(4)", "--device", "tpu", pngs[0]]) == 1
     assert cli.main(["--special=bogus", pngs[0]]) == 1
     assert "Invalid special command" in capsys.readouterr().err
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: --device cuda is accepted")
-    assert cli.main(["--codec=voronoi(4)", pngs[0]]) == 1  # cuda by default
-    assert "Device unavailable" in capsys.readouterr().err
+    for spec in ("voronoi(4)", "hufman", "delta", "zip(back)"):
+        assert cli.main([f"--codec={spec}", pngs[0]]) == 1  # cuda by default
+        assert "Device unavailable" in capsys.readouterr().err
     assert not (tmp_path / "output").exists()
