@@ -8,17 +8,22 @@ Phases:
 
 1. the device: its name and power limit, the torch, CUDA, nvcc and cc
    versions;
-2. the build, all libraries at once (one compiler process each): K1
-   (`csrc/kmeans_assign.cu`), K2 and K3 (`csrc/approx_rle.cu`), D1 and D2
-   (`csrc/huffman_dev.cu`), all with nvcc for sm_90a, with the registers,
-   shared memory and spills ptxas reports, and the host C runtime, all from
-   the sources in this checkout;
+2. the build, all libraries at once (one compiler process each): K1 and
+   D3 (`csrc/kmeans_assign.cu`), K2 and K3 (`csrc/approx_rle.cu`), D1 and
+   D2 (`csrc/huffman_dev.cu`), all with nvcc for sm_90a, with the
+   registers, shared memory and spills ptxas reports, and the host C
+   runtime (`csrc/cniic_native.c`), all from the sources in this checkout;
 3. every kernel against its plain PyTorch version at real widths, exact
    equality of every output. K1: (a) voronoi-like, 4 lanes x 1024^2
    points, d = 5, k = 128; (b) cluster-colors-like, 8 lanes of unique
    colours weighted by their counts, d = 3, k = 32; (c) duplicated points
    and centroids; (d) a frozen lane; (e) k = 2048 at 65536 points (the
-   large-k statistics branch). K2 on the chunked Hilbert scans the chunked
+   large-k statistics branch); (f) the unpacked path at a 3840x2160
+   voronoi bound with duplicated points and centroids; (g) the unpacked
+   path with global statistics, d = 2 at coordinates up to 16383, k = 4096.
+   D3 on (a)'s statistics with emptied clusters (the steal), a frozen lane
+   and a plateauing lane, two steps, with max_iters free and binding. K2 on
+   the chunked Hilbert scans the chunked
    route gives it: (a) a 1024^2 scan, 1024 chunks, allow 4; (b) the same at
    allow 16; (c) the 2040x1356 scan, 1024 chunks of 2702, allow 4; (d)
    crafted boundary ties at allow 2 (flags set); (e) allow 64. K3 on 8
@@ -28,15 +33,22 @@ Phases:
    geometric codebook with 63-bit codes; D2's two passes on a 1024^2
    Hufman payload and a delta payload, and its decline on a deep-code
    stream; D1 and D2 also against the native C packer and decoder. Then
-   each kernel and its plain version timed on the card in turns, K3 alone
-   at 8 x 1024^2, and the D1/D2 routes against the C paths (host clock);
+   each kernel and its plain version timed on the card in turns (plain,
+   kernel, kernel, plain), each beside its bound (the larger of its bytes
+   over 3.35 TB/s and its operations over the card's peak rate for their
+   type) and roofline share, K3 alone at 8 x 1024^2, and the D1/D2 routes
+   against the C paths (host clock);
 4. the main paths through the normal entry points, each with the kernel
    counts set to 0 just before it and read just after: `runner.
    measure_all(from_spec(spec, device="cuda"), paths, batch=8)` over 8
    images of 1024^2 (bench.py's recipe, seed 2024) and one 2040x1356
-   image, written as PNGs. (i) cluster-colors(32) and voronoi(128): K1 must
-   have launched, the fused voronoi decode+MSE must have run, and the
-   runner must not have fallen back to per-image decode. (ii) hilbert(rle),
+   image, written as PNGs. (i) cluster-colors(32) and voronoi(128): K1 and
+   D3 must have launched (their launches and the loop's host checks are
+   printed per codec), the fused voronoi decode+MSE must have run, and the
+   runner must not have fallen back to per-image decode; then a
+   torch.profiler window over one warm `encode_batch` of each (8 images)
+   prints the device busy share and K1's and D3's shares
+   (`cniic_tpu_torch.kmeans_profile.encode_window`). (ii) hilbert(rle),
    hilbert(rle(4)) and hilbert(zip) with no gate (the host C runtime), then
    hilbert(rle(4)) under CNIIC_CHUNKED_RLE=1 (K2 must have launched and the
    streams must equal the ungated ones byte for byte) and under
@@ -77,7 +89,8 @@ import time
 import numpy as np
 import torch
 
-from cniic_tpu_torch import _build, hilbert, huffman, native, runner
+from cniic_tpu_torch import (_build, hilbert, huffman, kmeans_profile, native,
+                             runner)
 from cniic_tpu_torch.codecs import VoronoiCluster, from_spec
 from cniic_tpu_torch.codecs import delta as delta_codec
 from cniic_tpu_torch.codecs.base import pixels_row_major
@@ -88,6 +101,7 @@ from cniic_tpu_torch.ops import kmeans as km
 
 K1_SOURCE = "cniic_tpu_torch/csrc/kmeans_assign.cu"
 K1_REPLACES = "cniic_tpu/ops/kmeans_pallas.py:52"
+D3_REPLACES = "cniic_tpu/ops/kmeans.py:245"
 RLE_SOURCE = "cniic_tpu_torch/csrc/approx_rle.cu"
 K2_REPLACES = "cniic_tpu/ops/approx_rle.py:246"
 K3_REPLACES = "cniic_tpu/ops/approx_rle.py:54"
@@ -101,6 +115,11 @@ D2_REPLACES = "cniic_tpu/ops/hufdec.py:82"
 HOST_SPECS = ("hufman", "delta", "zip(dict)", "zip(back)")
 HUF_SPECS = ("hufman", "delta", "cluster-colors(32)")
 HUF_GATES = ("CNIIC_DEVICE_BITPACK", "CNIIC_DEVICE_HUF_DECODE")
+
+# the H100 SXM's published peak rates, for the bounds
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 1979e12   # int8 tensor cores: the card's fastest integer rate
+F32_OPS_PER_S = 67e12     # float32 outside the tensor cores
 
 # (real, rehearsal) sizes
 SIZES = {
@@ -220,21 +239,24 @@ def phase_build(rehearse: bool) -> None:
     print(f"phase 2: built {', '.join(jobs)} in parallel in {wall:.2f} s ("
           + ", ".join(f"{n} {t:.2f} s" for n, t in seconds.items()) + ")")
     if rehearse:
-        print("  K1, K2, K3, D1 and D2 not built (no nvcc in a rehearsal)")
+        print("  K1, D3, K2, K3, D1 and D2 not built (no nvcc in a rehearsal)")
         return
     with open(_build.log_path(kmeans_kernel.NAME)) as fh:
-        log = fh.read()
-    entries = re.findall(
-        r"kernelILi(\d)ELb([01])E.*?spill stores, (\d+) bytes spill loads"
-        r".*?Used (\d+) registers.*?(\d+) bytes smem", log, re.S)
-    check(len(entries) == 16, f"ptxas reported {len(entries)} of 16 kernels")
-    for d, smem_stats, spills, regs, smem in entries:
-        if d in ("3", "5"):  # the dimensions of the two codecs
-            branch = "shared" if smem_stats == "1" else "global"
-            print(f"  ptxas K1 d={d} {branch}-memory stats: {regs} registers, "
-                  f"{smem} B static smem, {spills} B spills")
-    print(f"  K1, all 16 instances: max {max(int(e[3]) for e in entries)} "
-          f"registers, max {max(int(e[2]) for e in entries)} B spills")
+        k1 = _ptxas_entries(fh.read())
+    steps = [v for name, v in k1.items() if "step_update_kernel" in name]
+    k1 = {name: v for name, v in k1.items() if "assign_stats_kernel" in name}
+    check(len(k1) == 32, f"ptxas reported {len(k1)} of 32 K1 kernels")
+    check(len(steps) == 1, f"ptxas reported {len(steps)} D3 kernels")
+    for name, (regs, st, ld, smem) in sorted(k1.items()):
+        m = re.search(r"ILi(\d)ELb([01])ELb([01])E", name)
+        if m and m.group(1) in ("3", "5"):  # the dimensions of the two codecs
+            print(f"  ptxas K1 d={m.group(1)} "
+                  f"{'shared' if m.group(2) == '1' else 'global'}-memory "
+                  f"stats, {'packed' if m.group(3) == '1' else 'unpacked'}: "
+                  f"{regs} registers, {smem} B static smem, {st} B spills")
+    print(f"  K1, all 32 instances: max {max(v[0] for v in k1.values())} "
+          f"registers, max {max(v[1] for v in k1.values())} B spills; D3 "
+          f"{steps[0][0]} registers, {steps[0][1]} B spills")
     with open(_build.log_path(approx_rle.NAME)) as fh:
         rle = _ptxas_entries(fh.read())
     with open(_build.log_path(bitpack.NAME)) as fh:
@@ -251,28 +273,6 @@ def phase_build(rehearse: bool) -> None:
 # ---------------------------------------------------------------------------
 # phase 3: K1 against its plain version
 # ---------------------------------------------------------------------------
-
-def _voronoi_step(imgs, k, dev):
-    ptsT, w = km._voronoi_setup(torch.from_numpy(np.stack(imgs)).to(dev))
-    B, _, n = ptsT.shape
-    cur, cents = km._init_state(ptsT, [n] * B, k)
-    h, wd = imgs[0].shape[:2]
-    ns = torch.full((B,), n, dtype=torch.int32, device=dev)
-    act = torch.ones(B, dtype=torch.int32, device=dev)
-    return [ptsT, w, cur, cents, ns, act], [wd - 1, h - 1, 255, 255, 255]
-
-
-def _colour_step(imgs, k, dev):
-    stats = [histogram.color_histogram(pixels_row_major(im)) for im in imgs]
-    pts, w, ns = km.pad_lanes([s[0].astype(np.int64) for s in stats],
-                              [s[1] for s in stats])
-    ptsT = torch.from_numpy(pts).to(dev)
-    cur, cents = km._init_state(ptsT, ns, k)
-    ops = [ptsT, torch.from_numpy(w).to(dev), cur, cents,
-           torch.tensor(ns, dtype=torch.int32, device=dev),
-           torch.ones(len(ns), dtype=torch.int32, device=dev)]
-    return ops, pts.max(axis=(0, 2)).tolist()
-
 
 def _synthetic_step(seed, B, d, n, k, maxv, dev, ties=False, frozen=False):
     rng = np.random.default_rng(seed)
@@ -313,19 +313,108 @@ def _time_ms(fn, iters: int, dev, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _unpacked_step(seed, pmax, B, n, k, dev):
+    """Points and centroids spread over [0, pmax] (past the packed bound),
+    half the points and centroids duplicated, points on every centroid."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.integers(0, m + 1, (B, n)) for m in pmax],
+                   axis=1).astype(np.int32)
+    pts[:, :, n // 2:] = pts[:, :, : n - n // 2]
+    cents = np.ascontiguousarray(
+        pts[:, :, rng.integers(0, n, k)].transpose(0, 2, 1))
+    cents[:, k // 2:] = cents[:, : k - k // 2]
+    m = min(n, k)
+    pts[:, :, :m] = cents[:, :m].transpose(0, 2, 1)
+    ops = [pts, rng.integers(1, 9, (B, n)).astype(np.int32),
+           rng.integers(0, k, (B, n)).astype(np.int32), cents,
+           np.full(B, n, np.int32), np.ones(B, np.int32)]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in ops], list(pmax)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def bound(nbytes: int, ops: float = 0.0, peak: float = INT_OPS_PER_S):
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(ops):
+    """K1 on these operands: each valid point of an active lane read once
+    (d coordinates, w, cur) and its new id written once, the centroids read
+    and the statistics written once; d multiply-adds per (point, centroid)
+    pair (2 operations each), counted at the card's fastest integer rate."""
+    ptsT, _, _, cents, n, act = ops
+    _, d, _ = ptsT.shape
+    k = cents.shape[1]
+    points = int(torch.where(act != 0, n, 0).sum())
+    lanes = int((act != 0).sum())
+    nbytes = (points * (d + 3) * 4 + lanes * k * (d * 4 + (d + 1) * 8))
+    return bound(nbytes, 2.0 * points * k * d)
+
+
+def d3_bound(ops):
+    """D3: the statistics read and zeroed, the centroids written (the lane
+    scalars are noise)."""
+    sums, cents = ops[0], ops[4]
+    return bound(2 * _nbytes(sums) + _nbytes(cents))
+
+
+def _d3_state(k1_ops, k1_out, max_iters: int):
+    """D3's operands from a K1 step: its statistics with every fifth cluster
+    of lane 0 emptied (the steal), lane 1 frozen and lane 2 one stall short
+    of the plateau limit, at a large iteration."""
+    ptsT, _, _, cents, n, act = k1_ops
+    B = ptsT.shape[0]
+    dev = ptsT.device
+    sums = k1_out[1].clone()
+    sums[0, ::5] = 0
+    act = act.clone()
+    act[1] = 0
+    i64 = dict(dtype=torch.int64, device=dev)
+    moved = torch.full((B,), 10**6, **i64)
+    moved[1] = 0  # frozen: no move left above the threshold
+    best = torch.full((B,), 10**6, **i64)
+    stall = torch.zeros(B, **i64)
+    stall[2] = 63
+    best[2] = 0  # no 2% improvement on 0 moves: lane 2 plateaus
+    return [sums, k1_out[2].clone(), ptsT, n, cents.clone(), moved, best,
+            stall, act, torch.tensor([2**31 + 5, 1], **i64),
+            torch.zeros(B, **i64), 64, max_iters]
+
+
+def _device_ms(fn, key: str, dev) -> float:
+    """The kernel's own device time (profiler); host time in a rehearsal."""
+    if dev.type != "cuda":
+        return _time_ms(fn, 2, dev, warmup=0)
+    return kmeans_profile.kernel_device_ms(fn, key)
+
+
 def phase_kernel(imgs, dev, card, sz):
     cases = {
-        "a voronoi": _voronoi_step(imgs[:4], 128, dev),
-        "b cluster-colors": _colour_step(imgs[:8], 32, dev),
+        "a voronoi": kmeans_profile.voronoi_operands(imgs[:4], 128, dev),
+        "b cluster-colors": kmeans_profile.colour_operands(imgs[:8], 32,
+                                                          dev),
         "c ties": _synthetic_step(1, 2, 5, sz["tie_n"], 128, 1024,
                                           dev, ties=True),
         "d frozen lane": _synthetic_step(2, 3, 5, sz["frozen_n"], 64,
                                                 2048, dev, frozen=True),
-        "e large k": _voronoi_step(
+        "e large k": kmeans_profile.voronoi_operands(
             [imgs[0][:sz["bigk_side"], :sz["bigk_side"]]], 2048, dev),
+        "f unpacked, 3840x2160 bound": _unpacked_step(
+            3, [3839, 2159, 255, 255, 255], 2, sz["tie_n"], 128, dev),
+        "g unpacked, d=2 at 16383": _unpacked_step(
+            4, [16383, 16383], 2, sz["frozen_n"] // 10, 4096, dev),
     }
     print("phase 3: K1 against its plain version (exact equality)")
     max_err = 0
+    outs = {}
     for name, (ops, pmax) in cases.items():
         t0 = time.perf_counter()
         want = kmeans_kernel.assign_stats_ref(*[t.cpu() for t in ops])
@@ -333,34 +422,95 @@ def phase_kernel(imgs, dev, card, sz):
         got = kmeans_kernel.assign_stats(*ops, pmax=pmax)
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        outs[name] = got
         errs = [int((g.cpu().to(torch.int64) - w.to(torch.int64)).abs().max())
                 for g, w in zip(got, want)]
         max_err = max(max_err, *errs)
         B, d, n = ops[0].shape
         k = ops[3].shape[1]
+        path = "packed" if kmeans_kernel.packed_path(pmax, k) else "unpacked"
         branch = ("" if dev.type != "cuda" else
-                  " shared-memory stats" if kmeans_kernel.stats_in_smem(d, k)
-                  else " global-memory stats")
-        print(f"  ({name}) B={B} d={d} n={n} k={k}{branch}: max |err| of "
-              f"new, sums, moved = {errs}; moved {got[2].tolist()} "
-              f"(CPU plain version {t_ref:.1f} s)")
+                  ", shared-memory stats" if kmeans_kernel.stats_in_smem(d, k)
+                  else ", global-memory stats")
+        print(f"  ({name}) B={B} d={d} n={n} k={k}, {path}{branch}: max "
+              f"|err| of new, sums, moved = {errs}; moved "
+              f"{got[2].tolist()} (CPU plain version {t_ref:.1f} s)")
         check(errs == [0, 0, 0], f"K1 differs from its plain version in {name}")
+    paths = {kmeans_kernel.packed_path(pmax, ops[3].shape[1])
+             for ops, pmax in cases.values()}
+    check(paths == {True, False}, "the cases do not cover both K1 paths")
+
+    print("phase 3 (cont.): D3 against its plain version (exact equality)")
+    a_ops = cases["a voronoi"][0]
+    d3_err = 0
+    for max_iters in (2**40, 2**31 + 6):
+        got = _d3_state(a_ops, outs["a voronoi"], max_iters)
+        want = [t.cpu().clone() if torch.is_tensor(t) else t for t in got]
+        for step in range(2):
+            kmeans_kernel.step_update_ref(*want)
+            kmeans_kernel.step_update(*got)
+            err = _max_err(got[:11], want[:11])
+            d3_err = max(d3_err, err)
+            print(f"  D3 (a) max_iters {max_iters}, step {step + 1}: max "
+                  f"|err| of sums, moved_k, cents, moved, best, stall, act, "
+                  f"state = {err}; state {got[9].tolist()}, act "
+                  f"{got[8].tolist()}, stall {got[7].tolist()}")
+            check(err == 0, f"D3 differs from its plain version (max_iters "
+                  f"{max_iters}, step {step + 1})")
+    check(int(got[9][0]) == 2**31 + 6 and not bool(got[8].any()),
+          "D3 did not stop at a binding max_iters")
 
     timings = {}
     for key, name in (("a", "a voronoi"), ("b", "b cluster-colors")):
         ops, pmax = cases[name]
-        kernel = lambda: kmeans_kernel.assign_stats(*ops, pmax=pmax)  # noqa: E731
+        B, d, n_max = ops[0].shape
+        k = ops[3].shape[1]
+        bufs = (torch.zeros((B, n_max), dtype=torch.int32, device=dev),
+                torch.zeros((B, k, d + 1), dtype=torch.int64, device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev))
+        kernel = lambda: kmeans_kernel.assign_stats(  # noqa: E731
+            *ops, pmax=pmax, out=bufs)
         plain = lambda: kmeans_kernel.assign_stats_ref(*ops)  # noqa: E731
         p1 = _time_ms(plain, sz["iters"], dev)
         k1 = _time_ms(kernel, sz["iters"], dev)
         k2 = _time_ms(kernel, sz["iters"], dev)
         p2 = _time_ms(plain, sz["iters"], dev)
-        timings[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"  time ({key}) on {card}: kernel {k1 * 1e3:.1f} / "
+        b_ms, b_by = k1_bound(ops)
+        dev_ms = _device_ms(kernel, "assign_stats_kernel", dev)
+        timings[key] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by, dev_ms)
+        print(f"  time K1 ({key}) on {card}: kernel {k1 * 1e3:.1f} / "
               f"{k2 * 1e3:.1f} us per launch, plain version {p1 * 1e3:.1f} / "
               f"{p2 * 1e3:.1f} us (plain, kernel, kernel, plain; "
-              f"{sz['iters']} launches each)")
-    return max_err, timings
+              f"{sz['iters']} launches each); kernel alone (profiler) "
+              f"{dev_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us ({b_by}), "
+              f"roofline share {b_ms / ((k1 + k2) / 2):.4f} "
+              f"({b_ms / dev_ms:.4f} of the kernel alone)")
+    ops = _d3_state(a_ops, outs["a voronoi"], 2**40)
+    ops[10] = ops[10] - 1          # thresh -1 and no plateau limit keep
+    ops[11] = 1 << 40              # every lane active from call to call
+    ops[8] = torch.ones_like(ops[8])
+    sums0 = ops[0].clone()
+    # each call after a fresh copy of the statistics (D3 zeroes them)
+    kernel = lambda: (ops[0].copy_(sums0),  # noqa: E731
+                      kmeans_kernel.step_update(*ops))
+    plain = lambda: (ops[0].copy_(sums0),  # noqa: E731
+                     kmeans_kernel.step_update_ref(*ops))
+    p1 = _time_ms(plain, sz["iters"], dev)
+    k1 = _time_ms(kernel, sz["iters"], dev)
+    k2 = _time_ms(kernel, sz["iters"], dev)
+    p2 = _time_ms(plain, sz["iters"], dev)
+    b_ms, b_by = d3_bound(ops)
+    dev_ms = _device_ms(kernel, "step_update_kernel", dev)
+    # the events see the host's enqueue rate (the wrapper's checks take
+    # longer than the kernel), so D3's time is the kernel's own
+    timings["D3"] = (dev_ms, (p1 + p2) / 2, b_ms, b_by, (k1 + k2) / 2)
+    print(f"  time D3 (a) on {card}: kernel alone (profiler) "
+          f"{dev_ms * 1e3:.2f} us; a copy of the statistics then a call: "
+          f"kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us, plain version "
+          f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us (plain, kernel, kernel, "
+          f"plain); bound {b_ms * 1e3:.3f} us ({b_by}), roofline share "
+          f"{b_ms / dev_ms:.4f}")
+    return max_err, d3_err, timings
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +614,8 @@ def phase_rle_kernels(imgs, dev, card, sz):
         check(err == 0, f"K2 differs from its plain version in {name}")
         if name.startswith("a"):
             k2_timed = (rgb, ln, allow)
+            # about 40 integer operations a (stream, position) step
+            k2_bound = bound(_nbytes(rgb, ln, *got), 40.0 * rgb.numel())
         if name.startswith("d"):
             check(all(int(flags[j]) == 1 for j in tied),
                   "a crafted tie was not flagged")
@@ -492,6 +644,9 @@ def phase_rle_kernels(imgs, dev, card, sz):
         check(err == 0, f"K3 differs from its plain version at allow {allow}")
         if allow == 4:
             k3_timed = (rgb, ln)
+            # about 30 float32 operations a pixel step
+            k3_bound = bound(_nbytes(rgb, ln, got), 30.0 * rgb.numel(),
+                             F32_OPS_PER_S)
 
     timings = {}
     rgb, ln, allow = k2_timed
@@ -504,12 +659,15 @@ def phase_rle_kernels(imgs, dev, card, sz):
         lambda: approx_rle.batch_records(rgb3, ln3, 4.0),
         lambda: approx_rle.approx_rle_batch_ref(rgb3, ln3, 4.0),
         sz["iters"], dev)
-    for name, shape in (("K2", f"{rgb.shape[1]} x {rgb.shape[0]}"),
-                        ("K3", f"8 x {L}")):
+    for name, shape, (b_ms, b_by) in (
+            ("K2", f"{rgb.shape[1]} x {rgb.shape[0]}", k2_bound),
+            ("K3", f"8 x {L}", k3_bound)):
         (k1, k2), (p1, p2) = timings[name]
+        timings[name] = ((k1, k2), (p1, p2), b_ms, b_by)
         print(f"  time {name} ({shape}) on {card}: kernel {k1:.4f} / "
               f"{k2:.4f} ms per launch, plain version {p1:.1f} / {p2:.1f} ms "
-              f"(plain, kernel, kernel, plain)")
+              f"(plain, kernel, kernel, plain); bound {b_ms * 1e3:.3f} us "
+              f"({b_by}), roofline share {2 * b_ms / (k1 + k2):.5f}")
     big = np.stack(scans[:8])
     rgb8, ln8 = approx_rle._position_major(big, [big.shape[1]] * 8, dev)
     t_big = _time_ms(lambda: approx_rle.batch_records(rgb8, ln8, 4.0), 3, dev,
@@ -579,7 +737,8 @@ def _d1_case(name, ids_list, freqs_list, dev):
           f"{sum(totals)} payload bits: max |err| {err}, bytes equal the C "
           f"packer's (plain version {t_ref:.3f} s)")
     check(err == 0, f"D1 differs from its plain version in {name}")
-    return err, ops, n_words
+    # about 20 integer operations a symbol
+    return err, ops, n_words, bound(_nbytes(*ops, got), 20.0 * ops[0].numel())
 
 
 def _tree_stream(ids, freqs):
@@ -626,36 +785,41 @@ def _d2_case(name, stream, n, dev):
           + ("declined" if declined else "ids equal the native decoder's")
           + f" (plain pass 1 {t_ref:.2f} s)")
     check(err == 0, f"D2 differs from its plain version in {name}")
-    return err, declined, (pay, lr2, s1, e1, total)
+    # pass 1: about 8 integer operations a bit walked (exit - end + end -
+    # start bits a lane)
+    walked = int((got[0].to(torch.int64) + e1 - s1).sum())
+    return err, declined, (pay, lr2, s1, e1, total), bound(
+        _nbytes(pay, lr2, s1, e1, got[0], got[1]), 8.0 * walked)
 
 
 def phase_huffman_kernels(imgs, dev, card, sz):
     print("phase 3 (cont.): D1 and D2 against their plain versions (exact "
           "equality)")
     stats = [histogram.color_histogram(pixels_row_major(im)) for im in imgs[:8]]
-    d1_err, d1_ops, n_words = _d1_case(
+    d1_err, d1_ops, n_words, d1_bound = _d1_case(
         "a Hufman, 8 images", [s[2] for s in stats], [s[1] for s in stats],
         dev)
     _, dcounts, dinv = delta_codec._scan_stats(imgs[0])
-    err, _, _ = _d1_case("b delta, 1 image", [dinv], [dcounts], dev)
+    err, _, _, _ = _d1_case("b delta, 1 image", [dinv], [dcounts], dev)
     d1_err = max(d1_err, err)
     rng = np.random.default_rng(11)
     geo = 2 ** np.arange(64, dtype=np.uint64)
-    err, _, _ = _d1_case("c geometric codebook",
+    err, _, _, _ = _d1_case("c geometric codebook",
                          [rng.integers(0, 64, imgs[0].shape[0] ** 2)
                           .astype(np.int32)], [geo], dev)
     d1_err = max(d1_err, err)
 
     huf = _tree_stream(stats[0][2], stats[0][1])
-    d2_err, declined, d2_ops = _d2_case("a Hufman", huf, stats[0][2].size, dev)
+    d2_err, declined, d2_ops, d2_bound = _d2_case("a Hufman", huf,
+                                                  stats[0][2].size, dev)
     check(not declined, "D2 declined the Hufman payload")
-    err, declined, _ = _d2_case("b delta", _tree_stream(dinv, dcounts),
-                                dinv.size, dev)
+    err, declined, _, _ = _d2_case("b delta", _tree_stream(dinv, dcounts),
+                                   dinv.size, dev)
     check(not declined, "D2 declined the delta payload")
     d2_err = max(d2_err, err)
     deep_ids = rng.integers(0, 40, 30_000).astype(np.int32)
     deep = _tree_stream(deep_ids, 2 ** np.arange(40, dtype=np.uint64))
-    err, declined, _ = _d2_case("c deep codes", deep, deep_ids.size, dev)
+    err, declined, _, _ = _d2_case("c deep codes", deep, deep_ids.size, dev)
     d2_err = max(d2_err, err)
     on_cpu = hufdec.decode_payload_device(*deep, deep_ids.size, device="cpu")
     check((on_cpu is None) == declined,
@@ -672,12 +836,16 @@ def phase_huffman_kernels(imgs, dev, card, sz):
                           sz["iters"], dev)}
     t_check = _time_ms(lambda: bitpack._check(*d1_ops), sz["iters"], dev)
     print(f"  D1's input checks alone (one host sync): {t_check:.4f} ms")
-    for name, shape in (("D1", f"{d1_ops[0].shape[0]} x {d1_ops[0].shape[1]}"
-                         " ids"), ("D2", f"pass 1, {d2_ops[2].numel()} lanes")):
+    for name, shape, (b_ms, b_by) in (
+            ("D1", f"{d1_ops[0].shape[0]} x {d1_ops[0].shape[1]} ids",
+             d1_bound),
+            ("D2", f"pass 1, {d2_ops[2].numel()} lanes", d2_bound)):
         (k1, k2), (p1, p2) = timings[name]
+        timings[name] = ((k1, k2), (p1, p2), b_ms, b_by)
         print(f"  time {name} ({shape}) on {card}: kernel {k1:.4f} / "
               f"{k2:.4f} ms per launch, plain version {p1:.1f} / {p2:.1f} ms "
-              f"(plain, kernel, kernel, plain)")
+              f"(plain, kernel, kernel, plain); bound {b_ms * 1e3:.3f} us "
+              f"({b_by}), roofline share {2 * b_ms / (k1 + k2):.5f}")
 
     # the whole routes against the C paths on the same streams (host clock)
     books = [huffman.build_codebook(s[1]) for s in stats]
@@ -789,11 +957,31 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
     print("phase 4: the main paths, runner.measure_all(from_spec(spec, "
           f"device={dev.type!r}), {len(paths)} PNGs, batch=8)")
     runs = {}
-    kmeans_kernel.assign_stats.launches = 0
+    k1, d3 = kmeans_kernel.assign_stats, kmeans_kernel.step_update
+    k1.launches = d3.launches = 0
     for spec in SPECS:
+        before = (k1.launches, d3.launches)
         runs[spec] = _measured(spec, paths, dev, card, out_dir)
-    launches = {"K1": kmeans_kernel.assign_stats.launches}
-    print(f"  K1 launches over the k-means path: {launches['K1']}")
+        n_d3 = d3.launches - before[1]
+        print(f"  {spec}: K1 launches {k1.launches - before[0]}, D3 "
+              f"launches {n_d3}, host checks of the loop "
+              f"{n_d3 // km._CHECK_EVERY} (one every {km._CHECK_EVERY} "
+              "iterations)")
+    launches = {"K1": k1.launches, "D3": d3.launches}
+    print(f"  K1 launches over the k-means path: {launches['K1']}, D3 "
+          f"launches {launches['D3']}")
+    if dev.type == "cuda":
+        for spec in SPECS:
+            win = kmeans_profile.encode_window(from_spec(spec, device="cuda"),
+                                               imgs[:8])
+            print(f"  profiler, one warm {spec} encode_batch of 8 images on "
+                  f"{card}: {win['wall_s']:.4f} s, device busy share "
+                  f"{win['busy_share']:.4f}, K1 {win['k1_share']:.4f}, D3 "
+                  f"{win['d3_share']:.4f}; {win['kernels']} kernels, "
+                  f"{win['iterations']} iterations, "
+                  f"{win['kernels_per_iteration']:.2f} kernels an iteration")
+            check(win["device_events"] > 0,
+                  f"the profiler saw no device activity in {spec}")
 
     for spec in HILBERT_SPECS:
         runs[spec] = _measured(spec, paths, dev, card, out_dir)
@@ -893,7 +1081,7 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     imgs = [synth_image(rng, sz["side"], sz["side"]) for _ in range(8)]
     imgs.append(synth_image(rng, *sz["div2k"]))
-    max_err, timings = phase_kernel(imgs, dev, card, sz)
+    max_err, d3_err, timings = phase_kernel(imgs, dev, card, sz)
     rle = phase_rle_kernels(imgs, dev, card, sz)
     huf = phase_huffman_kernels(imgs, dev, card, sz)
 
@@ -911,28 +1099,42 @@ def main() -> int:
                    "--format=csv,noheader"]).strip().splitlines()[0])
     else:
         print(card)
-    (ms, plain_ms), (ms_b, plain_ms_b) = timings["a"], timings["b"]
+    (ms, plain_ms, b_ms, b_by, dev_ms) = timings["a"]
+    (ms_b, plain_ms_b, b_ms_b, _, dev_ms_b) = timings["b"]
     kernels = [{
         "id": "K1", "name": "kmeans_assign_stats", "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches["K1"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "ms_cluster_colors": ms_b, "plain_ms_cluster_colors": plain_ms_b}]
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "device_ms": dev_ms, "ms_cluster_colors": ms_b,
+        "plain_ms_cluster_colors": plain_ms_b,
+        "device_ms_cluster_colors": dev_ms_b,
+        "bound_ms_cluster_colors": b_ms_b}]
+    d3_ms, d3_plain, d3_b, d3_by, d3_call = timings["D3"]
+    kernels.append({
+        "id": "D3", "name": "kmeans_step_update", "route": "cuda",
+        "source": K1_SOURCE, "replaces": D3_REPLACES,
+        "launches": launches["D3"], "max_abs_err": d3_err, "ms": d3_ms,
+        "plain_ms": d3_plain, "bound_ms": d3_b, "bound_by": d3_by,
+        "library_ms": None, "call_ms": d3_call})
     for name, fn, replaces in (("K2", "approx_rle_wide", K2_REPLACES),
                                ("K3", "approx_rle_batch", K3_REPLACES)):
-        err, (k_ms, p_ms) = rle[name]
+        err, (k_ms, p_ms, kb_ms, kb_by) = rle[name]
         kernels.append({
             "id": name, "name": fn, "route": "cuda", "source": RLE_SOURCE,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2})
+            "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2,
+            "bound_ms": kb_ms, "bound_by": kb_by, "library_ms": None})
     kernels[-1]["ms_8x1024x1024"] = rle["K3 8x1024^2 ms"]
     for name, fn, replaces in (("D1", "huf_pack", D1_REPLACES),
                                ("D2", "huf_walk", D2_REPLACES)):
-        err, (k_ms, p_ms) = huf[name]
+        err, (k_ms, p_ms, kb_ms, kb_by) = huf[name]
         kernels.append({
             "id": name, "name": fn, "route": "cuda", "source": HUF_SOURCE,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2})
+            "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2,
+            "bound_ms": kb_ms, "bound_by": kb_by, "library_ms": None})
     kernels[-2]["check_ms"] = huf["D1 check ms"]
     kernels[-1]["routes_ms"] = huf["routes ms"]
     print(json.dumps({"kernels": kernels}))

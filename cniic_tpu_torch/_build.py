@@ -3,9 +3,8 @@
 Two shared libraries back the port, both compiled on first use into the
 git-ignored `cniic_tpu_torch/_build/` directory and loaded with ctypes:
 
-* the host C runtime, from the reference's one source file
-  `cniic_tpu/native/cniic_native.c` (read by path; `cniic_tpu` is never
-  imported), with the system C compiler;
+* the host C runtime, from `csrc/cniic_native.c` (the port's copy of the
+  reference's one source file), with the system C compiler;
 * the CUDA kernels under `csrc/`, with `nvcc` for `sm_90a`.
 
 A library is rebuilt whenever one of its sources is newer than it. Each
@@ -25,7 +24,6 @@ import subprocess
 import threading
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-REPO_ROOT = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 _lock = threading.Lock()

@@ -1,43 +1,70 @@
-// K1: one fused k-means step (assignment + centroid statistics) for Hopper.
+// K1: one fused k-means step (assignment + centroid statistics), and D3: the
+// step's update (means, steal, plateau, freeze, iteration count), for Hopper.
 //
-// Replaces the TPU kernel cniic_tpu/ops/kmeans_pallas.py::_kernel (and its
-// XLA twin _assign_stats_xla in cniic_tpu/ops/kmeans.py). For every active
-// lane b (act[b] != 0) and every point i < n[b]:
+// K1 replaces the TPU kernel cniic_tpu/ops/kmeans_pallas.py::_kernel (and
+// its XLA twin _assign_stats_xla in cniic_tpu/ops/kmeans.py). For every
+// active lane b (act[b] != 0) and every point i < n[b]:
 //
-//   * the exact squared distance d2 = sum_d (p - c)^2 to every centroid, in
-//     int32 (the caller bounds d2 below 2^31; never float, never TF32);
+//   * the exact squared distance d2 to every centroid, in 32-bit integers
+//     (the caller bounds d2 below 2^31; never float, never TF32);
 //   * the new assignment: the lowest-index argmin if its d2 is strictly
 //     below the d2 of the current centroid, else the current centroid;
 //   * the lane's count of points whose assignment changed;
-//   * per-cluster int64 sums of w*p per dimension and of w.
+//   * per-cluster int64 sums of w*p per dimension and of w, added to `sums`.
 //
-// Frozen lanes are skipped whole: their outputs keep the zeros the caller
-// allocated. Points past n[b] are not touched either (their assignment stays
-// 0, like the TPU kernel's forced 0 on padding).
+// Frozen lanes are skipped whole; points past n[b] are not touched. The new
+// assignment may be written over `cur` itself (each thread reads a point's
+// current id before it writes the new one).
 //
-// What bounds it on this card: int32 ALU work, about k*d multiply-adds per
-// point (a subtract and a multiply-add per dimension and centroid, then a
-// compare); the points are read once per step. The design keeps everything
-// else off that path: the k centroids sit in shared memory and every warp
-// reads the same one at a time (a broadcast, no bank conflicts); points
-// come in as [B, d, n] planes so a warp's loads coalesce. The statistics
-// are integer, so their sums do not depend on the order of the atomics and
-// the result is deterministic. Two statistics branches, chosen by k:
+// What bounds it on this card. The step reads ptsT, w and cur and writes the
+// new ids once: 134 MB at 4 lanes of 1024^2 voronoi points (d = 5), 40 us at
+// 3.35 TB/s. Its arithmetic is 0.54 G (point, centroid) pairs of d
+// multiply-adds there; int32 multiply-adds issue at 64 lanes a clock on an
+// SM (half the FP32 rate), so the integer pipe, not memory, sets the pace.
+// The design spends as few instructions a pair as it can:
 //
-//   * small k: the k x (d+1) int64 tile lives in shared memory, each thread
-//     adds into it with 64-bit shared atomics, and each block adds its tile
-//     into global memory with one atomic per (cluster, column);
-//   * large k (tile + centroids above 48 KB, e.g. k = 2048 at d = 5): the
-//     threads add straight into global memory.
+//   * Expanded, packed scores. The shared row of centroid c holds
+//     B_j = -2*pk*c_j and cc = |c|^2*pk + c (pk: the power of two >= k);
+//     a point's key for c is cc + sum_j p_j*B_j, which is d2*pk + c - |p|^2*pk:
+//     d multiply-adds and one signed min a pair (6 instructions at d = 5,
+//     where the direct (p - c)^2 form takes ~13). Keys are
+//     accumulated in uint32: wraparound is exact because every key's true
+//     value lies in (-2^31, 2^31) whenever (d2_bound + 1) * pk <= 2^31. Then
+//     min + |p|^2*pk = best_d2*pk + best, the lowest index among equals. The
+//     wrapper picks this path from the host bound; above it (e.g. 3840x2160
+//     voronoi coordinates at k = 128) the same loop runs unpacked (pk = 1,
+//     cc = |c|^2) and keeps a (score, index) pair.
+//   * Register tiling: each thread scores kT points, so one broadcast
+//     shared load of a centroid row (16 B vectors) feeds kT points.
+//   * Statistics aggregated before the atomics: a warp's 32 neighbouring
+//     points mostly share a cluster (voronoi pixels, sorted histogram
+//     colours). When they all do, warp reductions sum the d+1 int64 values;
+//     otherwise __match_any_sync groups equal ids and a tree of shuffles sums
+//     each group's. One lane a group adds them. Integer sums do not depend
+//     on the order of the atomics: the result is deterministic.
+//   * Two statistics branches, chosen by k: the k x (d+1) int64 tile in
+//     shared memory (added to global memory once per block), or, when the
+//     tile and the rows pass 48 KB (k = 2048 at d = 5), straight to global.
 //
-// The TPU kernel's bf16 hi/lo split, one-hot digit-plane matmuls, packed
-// (score, tiebreak) key and block ladder are gone: they worked around bf16x3
-// f32 matmuls and the lack of int64 and scatters in Mosaic.
+// Tensor cores, estimated and not used: the exact route is int8 mma/wgmma,
+// and 14-bit coordinates need byte splits of both operands, three
+// accumulators of different scale and a per-(point, centroid) epilogue that
+// recombines them, takes the min and tracks the index: about the 6
+// instructions a pair the packed loop costs, so no gain at d <= 5. Float
+// tensor cores are not exact (TF32) and are not used.
+//
+// D3 replaces the XLA programs of the JAX loop body around K1
+// (cniic_tpu/ops/kmeans.py::_means_from_sums, ::_steal_indices,
+// ::_plateau_update and the `where`s of kmeans_pallas.py::kmeans_loop_pallas).
+// One block updates every lane: truncated means sums // wsum, the Weyl steal
+// for empty clusters, moved/best/stall/act, the iteration count on the card,
+// and zeroes the statistics for the next K1. It is latency-bound (a few
+// thousand values); its point is that the loop needs no host round trip.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (see cniic_tpu_torch/ops/kmeans_kernel.py). The launcher
-// has a plain C interface, runs on the caller's stream, allocates nothing
-// and returns cudaGetLastError().
+// -Xcompiler -fPIC (see cniic_tpu_torch/ops/kmeans_kernel.py). The launchers
+// have a plain C interface, run on the caller's stream, allocate nothing and
+// return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,37 +72,108 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr size_t kDefaultSmem = 48 * 1024;   // usable without an opt-in
-constexpr size_t kMaxSmem = 232448 - 64;     // per block on sm_90, opted in,
-                                             // less the static s_moved
-constexpr int kTargetBlocks = 132 * 4;       // 4 blocks of 256 per SM
+constexpr int kT = 4;                      // points a thread scores
+constexpr int kTile = kThreads * kT;       // points a block takes at a time
+constexpr size_t kDefaultSmem = 48 * 1024;  // usable without an opt-in
+constexpr size_t kMaxSmem = 232448 - 64;    // per block on sm_90, opted in,
+                                            // less the static shared words
+constexpr unsigned kFull = 0xffffffffu;
 
 typedef unsigned long long u64;
 
-template <int D, bool kSmemStats>
+// words of one centroid row in shared memory: B_0..B_{D-1}, cc, padding to
+// whole 16-byte vectors
+template <int D>
+struct Row {
+  static constexpr int kWords = (D + 1 + 3) / 4 * 4;
+  static constexpr int kVecs = kWords / 4;
+};
+
+__host__ __device__ constexpr size_t round16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+
+int log2_pow2_at_least(int k) {
+  int s = 0;
+  while ((1 << s) < k) ++s;
+  return s;
+}
+
+// Sums v over each group of lanes with equal keys (`peers`, from
+// __match_any_sync); the lowest lane of a group ends with the group's sum.
+// A tree over each group's ranks: in round r a live lane adds the value of
+// its next live peer, and the lanes whose rank has bit r set drop out.
+template <int N>
+__device__ __forceinline__ void reduce_peers(unsigned peers, u64 (&v)[N]) {
+  const unsigned lane = threadIdx.x & 31;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & ~((2u << lane) - 1u);
+  while (__any_sync(kFull, above)) {
+    const int next = __ffs(above);
+    const int src = next ? next - 1 : (int)lane;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const u64 t = __shfl_sync(kFull, v[j], src);
+      if (next) v[j] += t;
+    }
+    above &= ~__ballot_sync(kFull, rank & 1u);
+    rank >>= 1;
+  }
+}
+
+// Sums v over the full warp, into every lane. Each value is below 2^48
+// (w < 2^31 times a coordinate below 2^16, as d2_bound < 2^31 implies), so
+// three 16-bit pieces summed with 32-bit warp reductions give it exactly.
+template <int N>
+__device__ __forceinline__ void reduce_warp(u64 (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    u64 total = 0;
+#pragma unroll
+    for (int s = 0; s < 48; s += 16) {
+      total += (u64)__reduce_add_sync(kFull, (unsigned)(v[j] >> s) & 0xffffu)
+               << s;
+    }
+    v[j] = total;
+  }
+}
+
+template <int D, bool kSmemStats, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
                     const int32_t* __restrict__ w,      // [B, n_max]
-                    const int32_t* __restrict__ cur,    // [B, n_max]
+                    const int32_t* cur,                 // [B, n_max]
                     const int32_t* __restrict__ cents,  // [B, k, D]
                     const int32_t* __restrict__ n,      // [B]
                     const int32_t* __restrict__ act,    // [B]
-                    int32_t* __restrict__ new_out,      // [B, n_max]
+                    int32_t* new_out,                   // [B, n_max], may be cur
                     u64* __restrict__ sums,             // [B, k, D + 1]
                     int32_t* __restrict__ moved,        // [B]
-                    int n_max, int k) {
+                    int n_max, int k, int shift) {
   const int b = blockIdx.y;
   if (act[b] == 0) return;  // uniform over the block
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_moved;
-  // the 8-byte statistics tile first, the centroids after it
   u64* s_sums = reinterpret_cast<u64*>(smem);
-  int32_t* s_cents = reinterpret_cast<int32_t*>(
-      smem + (kSmemStats ? sizeof(u64) * k * (D + 1) : 0));
+  uint32_t* s_rows = reinterpret_cast<uint32_t*>(
+      smem + (kSmemStats ? round16(sizeof(u64) * k * (D + 1)) : 0));
+  const uint4* s_vecs = reinterpret_cast<const uint4*>(s_rows);
 
   const int32_t* cb = cents + (size_t)b * k * D;
-  for (int i = threadIdx.x; i < k * D; i += blockDim.x) s_cents[i] = cb[i];
+  for (int c = threadIdx.x; c < k; c += blockDim.x) {
+    uint32_t sq = 0;
+    uint32_t* row = s_rows + (size_t)c * Row<D>::kWords;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const uint32_t v = (uint32_t)cb[c * D + d];
+      sq += v * v;
+      row[d] = 0u - (v << (shift + 1));
+    }
+    row[D] = (sq << shift) + (kPacked ? (uint32_t)c : 0u);
+#pragma unroll
+    for (int d = D + 1; d < Row<D>::kWords; ++d) row[d] = 0;
+  }
   if (kSmemStats) {
     for (int i = threadIdx.x; i < k * (D + 1); i += blockDim.x) s_sums[i] = 0;
   }
@@ -84,54 +182,104 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
 
   const int nb = n[b];
   const int32_t* pb = ptsT + (size_t)b * D * n_max;
-  const size_t row = (size_t)b * n_max;
+  const size_t lane_row = (size_t)b * n_max;
   u64* gsum = sums + (size_t)b * k * (D + 1);
+  u64* dst_sums = kSmemStats ? s_sums : gsum;
   int my_moved = 0;
 
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nb;
-       i += gridDim.x * blockDim.x) {
-    int p[D];
+  // block-uniform loop over tiles: every warp reaches the warp-wide
+  // aggregation below with all its lanes
+  for (int base = blockIdx.x * kTile; base < nb; base += gridDim.x * kTile) {
+    uint32_t p[kT][D];
+    uint32_t pp[kT];      // |p|^2 << shift
+    int32_t best[kT];     // min over c of (d2*pk + c) - |p|^2*pk
+    int best_c[kT];       // unpacked path: the argmin
 #pragma unroll
-    for (int d = 0; d < D; ++d) p[d] = pb[(size_t)d * n_max + i];
-
-    int best = 0;
-    int best_d2 = 0x7fffffff;
-    for (int c = 0; c < k; ++c) {
-      int d2 = 0;
+    for (int t = 0; t < kT; ++t) {
+      const int i = base + t * kThreads + threadIdx.x;
+      uint32_t sq = 0;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        const int t = p[d] - s_cents[c * D + d];
-        d2 += t * t;
+        p[t][d] = i < nb ? (uint32_t)pb[(size_t)d * n_max + i] : 0u;
+        sq += p[t][d] * p[t][d];
       }
-      if (d2 < best_d2) {  // strict: the lowest index wins among equals
-        best_d2 = d2;
-        best = c;
-      }
+      pp[t] = sq << shift;
+      best[t] = 0x7fffffff;
+      best_c[t] = 0;
     }
-    const int c0 = cur[row + i];
-    int cur_d2 = 0;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const int t = p[d] - s_cents[c0 * D + d];
-      cur_d2 += t * t;
-    }
-    // a point moves only to a strictly closer centroid
-    const int nw = best_d2 < cur_d2 ? best : c0;
-    new_out[row + i] = nw;
-    my_moved += nw != c0;
 
-    const long long wi = w[row + i];
-    if (wi != 0) {
-      u64* dst = (kSmemStats ? s_sums : gsum) + (size_t)nw * (D + 1);
+#pragma unroll 4
+    for (int c = 0; c < k; ++c) {
+      uint32_t r[Row<D>::kWords];
 #pragma unroll
-      for (int d = 0; d < D; ++d) atomicAdd(dst + d, (u64)(wi * p[d]));
-      atomicAdd(dst + D, (u64)wi);
+      for (int v = 0; v < Row<D>::kVecs; ++v) {
+        const uint4 q = s_vecs[c * Row<D>::kVecs + v];
+        r[4 * v] = q.x;
+        r[4 * v + 1] = q.y;
+        r[4 * v + 2] = q.z;
+        r[4 * v + 3] = q.w;
+      }
+#pragma unroll
+      for (int t = 0; t < kT; ++t) {
+        uint32_t key = r[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) key += p[t][d] * r[d];
+        if (kPacked) {
+          best[t] = min(best[t], (int32_t)key);
+        } else if ((int32_t)key < best[t]) {  // strict: lowest index wins
+          best[t] = (int32_t)key;
+          best_c[t] = c;
+        }
+      }
+    }
+
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const int i = base + t * kThreads + threadIdx.x;
+      const bool valid = i < nb;
+      int nw = 0;
+      int32_t wi = 0;
+      if (valid) {
+        const int c0 = cur[lane_row + i];
+        const uint32_t* row = s_rows + (size_t)c0 * Row<D>::kWords;
+        uint32_t key0 = row[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) key0 += p[t][d] * row[d];
+        const uint32_t cur_d2 = (key0 + pp[t]) >> shift;
+        const uint32_t best_key = (uint32_t)best[t] + pp[t];
+        const uint32_t best_d2 = best_key >> shift;
+        const int bc = kPacked ? (int)(best_key & ((1u << shift) - 1u))
+                               : best_c[t];
+        // a point moves only to a strictly closer centroid
+        nw = best_d2 < cur_d2 ? bc : c0;
+        new_out[lane_row + i] = nw;
+        my_moved += nw != c0;
+        wi = w[lane_row + i];
+      }
+      u64 v[D + 1];
+#pragma unroll
+      for (int d = 0; d < D; ++d) v[d] = (u64)((long long)wi * p[t][d]);
+      v[D] = (u64)(long long)wi;
+      const int key = valid ? nw : -1;
+      bool lead;
+      if (__all_sync(kFull, key == __shfl_sync(kFull, key, 0))) {
+        // the whole warp shares one cluster (the common case)
+        reduce_warp<D + 1>(v);
+        lead = (threadIdx.x & 31) == 0;
+      } else {
+        const unsigned peers = __match_any_sync(kFull, key);
+        reduce_peers<D + 1>(peers, v);
+        lead = (threadIdx.x & 31) == (unsigned)(__ffs(peers) - 1);
+      }
+      if (valid && lead && v[D] != 0) {
+        u64* dst = dst_sums + (size_t)nw * (D + 1);
+#pragma unroll
+        for (int d = 0; d <= D; ++d) atomicAdd(dst + d, v[d]);
+      }
     }
   }
 
-  // every thread of the block reaches this point (the early return above
-  // is block-uniform), so the full-warp reduction is safe
-  my_moved = __reduce_add_sync(0xffffffffu, my_moved);
+  my_moved = __reduce_add_sync(kFull, my_moved);
   if ((threadIdx.x & 31) == 0 && my_moved) atomicAdd(&s_moved, my_moved);
   __syncthreads();
   if (threadIdx.x == 0 && s_moved) atomicAdd(moved + b, s_moved);
@@ -143,31 +291,53 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
   }
 }
 
-bool stats_in_smem(int d, int k) {
-  return (size_t)k * d * sizeof(int32_t) + (size_t)k * (d + 1) * sizeof(u64) <=
-         kDefaultSmem;
+size_t smem_bytes(int d, int k, bool smem_stats) {
+  const size_t rows = (size_t)k * ((d + 1 + 3) / 4 * 4) * sizeof(uint32_t);
+  return rows + (smem_stats ? round16((size_t)k * (d + 1) * sizeof(u64)) : 0);
 }
 
-template <int D, bool kSmemStats>
+bool stats_in_smem(int d, int k) {
+  return smem_bytes(d, k, true) <= kDefaultSmem;
+}
+
+int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms < 1) sms = 1;
+  }
+  return sms;
+}
+
+template <int D, bool kSmemStats, bool kPacked>
 cudaError_t launch(const int32_t* ptsT, const int32_t* w, const int32_t* cur,
                    const int32_t* cents, const int32_t* n, const int32_t* act,
                    int32_t* new_out, u64* sums, int32_t* moved, int B,
                    int n_max, int k, cudaStream_t stream) {
-  size_t smem = (size_t)k * D * sizeof(int32_t);
-  if (kSmemStats) smem += (size_t)k * (D + 1) * sizeof(u64);
+  auto kernel = assign_stats_kernel<D, kSmemStats, kPacked>;
+  const size_t smem = smem_bytes(D, k, kSmemStats);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
-        assign_stats_kernel<D, kSmemStats>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int per_lane = (n_max + kThreads - 1) / kThreads;
-  int bx = (kTargetBlocks + B - 1) / B;
-  if (bx > per_lane) bx = per_lane;
+  // one wave: as many blocks as fit the card at once, shared by the lanes
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) per_sm = 1;
+  const int tiles = (n_max + kTile - 1) / kTile;
+  int bx = (per_sm * num_sms() + B - 1) / B;
+  if (bx > tiles) bx = tiles;
   if (bx < 1) bx = 1;
-  assign_stats_kernel<D, kSmemStats><<<dim3(bx, B), kThreads, smem, stream>>>(
-      ptsT, w, cur, cents, n, act, new_out, sums, moved, n_max, k);
+  const int shift = kPacked ? log2_pow2_at_least(k) : 0;
+  assign_stats_kernel<D, kSmemStats, kPacked>
+      <<<dim3(bx, B), kThreads, smem, stream>>>(
+      ptsT, w, cur, cents, n, act, new_out, sums, moved, n_max, k, shift);
   return cudaGetLastError();
 }
 
@@ -175,26 +345,114 @@ template <int D>
 cudaError_t launch_d(const int32_t* ptsT, const int32_t* w, const int32_t* cur,
                      const int32_t* cents, const int32_t* n, const int32_t* act,
                      int32_t* new_out, u64* sums, int32_t* moved, int B,
-                     int n_max, int k, cudaStream_t stream) {
-  if (stats_in_smem(D, k)) {
-    return launch<D, true>(ptsT, w, cur, cents, n, act, new_out, sums, moved,
-                           B, n_max, k, stream);
+                     int n_max, int k, bool packed, cudaStream_t stream) {
+  const bool in_smem = stats_in_smem(D, k);
+  if (packed && in_smem)
+    return launch<D, true, true>(ptsT, w, cur, cents, n, act, new_out, sums,
+                                 moved, B, n_max, k, stream);
+  if (packed)
+    return launch<D, false, true>(ptsT, w, cur, cents, n, act, new_out, sums,
+                                  moved, B, n_max, k, stream);
+  if (in_smem)
+    return launch<D, true, false>(ptsT, w, cur, cents, n, act, new_out, sums,
+                                  moved, B, n_max, k, stream);
+  return launch<D, false, false>(ptsT, w, cur, cents, n, act, new_out, sums,
+                                 moved, B, n_max, k, stream);
+}
+
+// D3: one block for the batch. s_act holds the lanes K1 ran on this step.
+__global__ void __launch_bounds__(kThreads)
+step_update_kernel(u64* __restrict__ sums,           // [B, k, d + 1] int64
+                   int32_t* __restrict__ moved_k,     // [B], K1's counts
+                   const int32_t* __restrict__ ptsT,  // [B, d, n_max]
+                   const int32_t* __restrict__ n,     // [B]
+                   int32_t* __restrict__ cents,       // [B, k, d]
+                   long long* __restrict__ moved,     // [B]
+                   long long* __restrict__ best,      // [B]
+                   long long* __restrict__ stall,     // [B]
+                   int32_t* __restrict__ act,         // [B]
+                   long long* __restrict__ state,     // [2]: it, any active
+                   const long long* __restrict__ thresh,  // [B]
+                   int B, int d, int n_max, int k, long long stall_lim,
+                   long long max_iters) {
+  extern __shared__ int s_act[];  // [B]
+  __shared__ int s_go;
+  const long long it = state[0];
+  if (threadIdx.x == 0) s_go = 0;
+  __syncthreads();
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    s_act[b] = act[b];
+    if (s_act[b]) s_go = 1;
   }
-  return launch<D, false>(ptsT, w, cur, cents, n, act, new_out, sums, moved, B,
-                          n_max, k, stream);
+  __syncthreads();
+  // no lane ran: K1 changed nothing, and neither does this step
+  if (!s_go) return;
+
+  const int kd = k * d;
+  for (int idx = threadIdx.x; idx < B * kd; idx += blockDim.x) {
+    const int b = idx / kd;
+    if (!s_act[b]) continue;
+    const int j = (idx - b * kd) / d;
+    const int dim = idx - b * kd - j * d;
+    const u64* s = sums + ((size_t)b * k + j) * (d + 1);
+    const long long wsum = (long long)s[d];
+    long long v;
+    if (wsum > 0) {
+      v = (long long)s[dim] / wsum;  // both nonnegative: truncation = floor
+    } else {
+      // the Weyl steal: ((it+1)*2654435769 + j*40503) & 0x7FFFFFFF over the
+      // lane's valid points (JAX's int32 wraparound has the same low bits)
+      const u64 mix = ((u64)(it + 1) * 2654435769ull + (u64)j * 40503ull) &
+                      0x7fffffffull;
+      const u64 nn = n[b] > 1 ? (u64)n[b] : 1ull;
+      v = ptsT[((size_t)b * d + dim) * n_max + (size_t)(mix % nn)];
+    }
+    cents[((size_t)b * k + j) * d + dim] = (int32_t)v;
+  }
+  __syncthreads();  // every mean read its sums
+  for (int i = threadIdx.x; i < B * k * (d + 1); i += blockDim.x) sums[i] = 0;
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    long long mo = moved[b], be = best[b], st = stall[b];
+    if (s_act[b]) {
+      const long long mv = moved_k[b];
+      mo = mv;
+      if (mv < be - be / 50) {  // a 2% improvement
+        be = mv;
+        st = 0;
+      } else {
+        st += 1;
+      }
+      moved[b] = mo;
+      best[b] = be;
+      stall[b] = st;
+    }
+    moved_k[b] = 0;
+    const int a = mo > thresh[b] && st < stall_lim && it + 1 < max_iters;
+    act[b] = a;
+    s_act[b] = a;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int any = 0;
+    for (int b = 0; b < B; ++b) any |= s_act[b];
+    state[0] = it + 1;
+    state[1] = any;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch one step on `stream`. Pointers are device pointers of contiguous
+// Launch one K1 step on `stream`. Pointers are device pointers of contiguous
 // tensors with the shapes noted on the kernel; `sums` is int64 (added as
-// two's-complement u64). Returns a cudaError_t (0 on success).
+// two's-complement u64), `sums` and `moved` are added to, `new_out` may be
+// `cur`. `packed` != 0 takes the packed-key path, which needs
+// (d2_bound + 1) * pk <= 2^31 (the caller checks). Returns a cudaError_t.
 int kmeans_assign_stats(const void* ptsT, const void* w, const void* cur,
                         const void* cents, const void* n, const void* act,
                         void* new_out, void* sums, void* moved, int B, int d,
-                        int n_max, int k, void* stream) {
+                        int n_max, int k, int packed, void* stream) {
   if (B <= 0 || n_max <= 0) return cudaSuccess;
   if (k < 1 || B > 65535) return cudaErrorInvalidValue;
   const int32_t* P = static_cast<const int32_t*>(ptsT);
@@ -206,18 +464,40 @@ int kmeans_assign_stats(const void* ptsT, const void* w, const void* cur,
   int32_t* O = static_cast<int32_t*>(new_out);
   u64* S = static_cast<u64*>(sums);
   int32_t* V = static_cast<int32_t*>(moved);
+  const bool pk = packed != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return launch_d<1>(P, W, C, M, N, A, O, S, V, B, n_max, k, s);
-    case 2: return launch_d<2>(P, W, C, M, N, A, O, S, V, B, n_max, k, s);
-    case 3: return launch_d<3>(P, W, C, M, N, A, O, S, V, B, n_max, k, s);
-    case 4: return launch_d<4>(P, W, C, M, N, A, O, S, V, B, n_max, k, s);
-    case 5: return launch_d<5>(P, W, C, M, N, A, O, S, V, B, n_max, k, s);
-    case 6: return launch_d<6>(P, W, C, M, N, A, O, S, V, B, n_max, k, s);
-    case 7: return launch_d<7>(P, W, C, M, N, A, O, S, V, B, n_max, k, s);
-    case 8: return launch_d<8>(P, W, C, M, N, A, O, S, V, B, n_max, k, s);
+    case 1: return launch_d<1>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
+    case 2: return launch_d<2>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
+    case 3: return launch_d<3>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
+    case 4: return launch_d<4>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
+    case 5: return launch_d<5>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
+    case 6: return launch_d<6>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
+    case 7: return launch_d<7>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
+    case 8: return launch_d<8>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Launch one D3 update on `stream` (shapes on the kernel; moved, best,
+// stall, state and thresh are int64). Returns a cudaError_t.
+int kmeans_step_update(void* sums, void* moved_k, const void* ptsT,
+                       const void* n, void* cents, void* moved, void* best,
+                       void* stall, void* act, void* state, const void* thresh,
+                       int B, int d, int n_max, int k, long long stall_lim,
+                       long long max_iters, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (d < 1 || k < 1 || n_max < 1) return cudaErrorInvalidValue;
+  step_update_kernel<<<1, kThreads, (size_t)B * sizeof(int),
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<u64*>(sums), static_cast<int32_t*>(moved_k),
+      static_cast<const int32_t*>(ptsT), static_cast<const int32_t*>(n),
+      static_cast<int32_t*>(cents), static_cast<long long*>(moved),
+      static_cast<long long*>(best), static_cast<long long*>(stall),
+      static_cast<int32_t*>(act), static_cast<long long*>(state),
+      static_cast<const long long*>(thresh), B, d, n_max, k, stall_lim,
+      max_iters);
+  return cudaGetLastError();
 }
 
 // 1 when the statistics tile of a (d, k) step lives in shared memory, 0 when

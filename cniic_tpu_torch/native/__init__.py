@@ -1,4 +1,4 @@
-"""ctypes bindings to the host C runtime (``cniic_tpu/native/cniic_native.c``).
+"""ctypes bindings to the host C runtime (``csrc/cniic_native.c``).
 
 Copy of the loader in ``cniic_tpu/native/__init__.py``, cut to the entry
 points the ported codecs reach: for the k-means codecs the histograms,
@@ -6,9 +6,10 @@ Huffman tree and bit packing, Rgb framing, gathers and the MSE sum; for the
 Hilbert family the curve generator, the row gathers and scatters, the RLE
 framing and fused decode, zip-dict and the exact-f64 approximate-RLE
 engine; for delta the diff keys, the fused gather+diff+histogram pass and
-the fused decode; zip-back for `zip(back)`. The C source is the reference's one
-file, compiled by path into this package's ``_build/`` directory (never next
-to the JAX package's own library) and rebuilt whenever the source is newer.
+the fused decode; zip-back for `zip(back)`. The C source is the port's own
+byte-for-byte copy of the reference's one file
+(``cniic_tpu/native/cniic_native.c``), compiled into this package's
+``_build/`` directory and rebuilt whenever the source is newer.
 All entry points release the GIL for the duration of the call (plain ctypes
 semantics), so host-side codec work can overlap device work from other
 threads.
@@ -23,7 +24,7 @@ import numpy as np
 
 from .. import _build
 
-_SRC = os.path.join(_build.REPO_ROOT, "cniic_tpu", "native", "cniic_native.c")
+_SRC = os.path.join(_build.PKG_DIR, "csrc", "cniic_native.c")
 
 
 def _commands():

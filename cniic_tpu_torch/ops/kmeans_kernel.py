@@ -1,30 +1,40 @@
-"""K1: the fused k-means assign+stats step, its CUDA kernel and plain version.
+"""K1 and D3: the k-means step's two CUDA kernels and their plain versions.
 
-Replaces the TPU kernel ``cniic_tpu/ops/kmeans_pallas.py::_kernel`` (and its
-XLA twin ``_assign_stats_xla`` in ``cniic_tpu/ops/kmeans.py``). The kernel
-is CUDA C++ for ``sm_90a`` in ``csrc/kmeans_assign.cu``, built with nvcc on
-first use into ``_build/`` and called through a plain C launcher with ctypes.
-Its source note says what bounds it on the card (int32 ALU work, about k*d
-multiply-adds per point) and what the design does about that.
+K1 replaces the TPU kernel ``cniic_tpu/ops/kmeans_pallas.py::_kernel`` (and
+its XLA twin ``_assign_stats_xla`` in ``cniic_tpu/ops/kmeans.py``): the
+fused assign + statistics step. D3 replaces the XLA programs of the JAX
+loop body around it (``_means_from_sums``, ``_steal_indices``,
+``_plateau_update`` and the ``where``s of ``kmeans_loop_pallas``): the
+step's update. Both are CUDA C++ for ``sm_90a`` in ``csrc/kmeans_assign.cu``,
+built with nvcc on first use into ``_build/`` and called through plain C
+launchers with ctypes. The source note says what bounds each on the card
+and what the design does about it.
 
-* ``assign_stats`` is the wrapper the engine calls. It checks devices,
-  dtypes, shapes, contiguity and the distance bound, then launches the
-  kernel for CUDA tensors (raising if the launch fails) or runs the plain
-  version for CPU tensors. It never falls back from one to the other.
-  ``assign_stats.launches`` counts kernel launches.
-* ``assign_stats_ref`` is the plain PyTorch version: blocked over points,
+* ``assign_stats`` is K1's wrapper. It checks devices, dtypes, shapes,
+  contiguity and the distance bound, picks the packed-key or the unpacked
+  path from the host bound (`packed_path`), then launches the kernel for
+  CUDA tensors (raising if the launch fails) or runs the plain version for
+  CPU tensors. It never falls back from one to the other.
+  ``assign_stats.launches`` counts kernel launches. With ``out=(new, sums,
+  moved)`` it writes into the caller's buffers (``new`` may be ``cur``;
+  ``sums`` and ``moved`` are added to and must start at zero).
+* ``assign_stats_ref`` is K1's plain PyTorch version: blocked over points,
   int64 distances, ``torch.argmin`` with the strict-move rule, and
   ``index_add_`` for the statistics.
+* ``step_update`` is D3's wrapper (same rules, ``step_update.launches``);
+  ``step_update_ref`` its plain version, the torch ops of the engine's
+  loop body gathered into one function that never syncs with the host.
 
-Operands (B lanes, n_max points per lane, d dimensions, k centroids):
+K1's operands (B lanes, n_max points per lane, d dimensions, k centroids):
 ptsT int32[B, d, n_max] (nonnegative), w int32[B, n_max], cur int32[B, n_max]
 (valid cluster ids for every point below n), cents int32[B, k, d],
 n int32[B], act int32[B]. Outputs: new int32[B, n_max], sums
 int64[B, k, d+1] (per cluster: sum of w*p per dimension, then sum of w) and
-moved int32[B]; a frozen lane (act == 0) and the points past n keep zeros.
-The kernel holds the k x d centroids in shared memory, so k * d * 4 bytes
-must fit a block's 227 KB (k <= 11619 at d = 5); beyond that the launch is
-refused and the wrapper raises.
+moved int32[B]; a frozen lane (act == 0) and the points past n keep zeros
+(or, with ``out``, what the buffers held). The kernel holds a row of 4, 8
+or 12 words per centroid in shared memory, so k rows must fit a block's
+227 KB (k <= 7263 at d = 5); beyond that the launch is refused and the
+wrapper raises.
 """
 
 from __future__ import annotations
@@ -63,9 +73,11 @@ def load_library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = _build.load(NAME, [SOURCE], _commands())
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.kmeans_assign_stats.argtypes = [vp] * 9 + [ci] * 4 + [vp]
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kmeans_assign_stats.argtypes = [vp] * 9 + [ci] * 5 + [vp]
     lib.kmeans_assign_stats.restype = ci
+    lib.kmeans_step_update.argtypes = [vp] * 11 + [ci] * 4 + [cl, cl, vp]
+    lib.kmeans_step_update.restype = ci
     lib.kmeans_stats_in_smem.argtypes = [ci, ci]
     lib.kmeans_stats_in_smem.restype = ci
     lib.kmeans_error_string.argtypes = [ci]
@@ -80,70 +92,107 @@ def stats_in_smem(d: int, k: int) -> bool:
     return bool(load_library().kmeans_stats_in_smem(d, k))
 
 
-def _check(ptsT, w, cur, cents, n, act, pmax) -> None:
+def d2_bound(pmax) -> int:
+    """No squared distance exceeds this: points and centroids (truncated
+    means or stolen points) lie in [0, pmax] per dimension."""
+    return sum(int(m) * int(m) for m in pmax)
+
+
+def packed_path(pmax, k: int) -> bool:
+    """Whether K1 may score with packed keys d2*pk + c (pk: the power of two
+    >= k): every key, and every key less |p|^2*pk, must stay below 2^31."""
+    pk = 1 << max(0, (k - 1).bit_length())
+    return (d2_bound(pmax) + 1) * pk <= 2**31
+
+
+def _check_tensors(named, device) -> None:
+    for name, (t, dtype, shape) in named.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, ptsT on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check(ptsT, w, cur, cents, n, act, pmax, out) -> None:
     if ptsT.dim() != 3:
         raise ValueError(f"ptsT must be [B, d, n_max], got {tuple(ptsT.shape)}")
     B, d, n_max = ptsT.shape
     if cents.dim() != 3 or cents.shape[0] != B or cents.shape[2] != d:
         raise ValueError(f"cents must be [{B}, k, {d}], got {tuple(cents.shape)}")
-    want = {"w": (w, (B, n_max)), "cur": (cur, (B, n_max)),
-            "n": (n, (B,)), "act": (act, (B,))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    for name, t in (("ptsT", ptsT), ("w", w), ("cur", cur), ("cents", cents),
-                    ("n", n), ("act", act)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if t.device != ptsT.device:
-            raise ValueError(f"{name} is on {t.device}, ptsT on {ptsT.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if cents.shape[1] < 1:
+    k = cents.shape[1]
+    i32 = torch.int32
+    want = {"ptsT": (ptsT, i32, (B, d, n_max)), "w": (w, i32, (B, n_max)),
+            "cur": (cur, i32, (B, n_max)), "cents": (cents, i32, (B, k, d)),
+            "n": (n, i32, (B,)), "act": (act, i32, (B,))}
+    if out is not None:
+        want.update({"out new": (out[0], i32, (B, n_max)),
+                     "out sums": (out[1], torch.int64, (B, k, d + 1)),
+                     "out moved": (out[2], i32, (B,))})
+    _check_tensors(want, ptsT.device)
+    if k < 1:
         raise ValueError("k-means needs k >= 1")
     if len(pmax) != d:
         raise ValueError(f"pmax needs {d} per-dimension maxima, got {len(pmax)}")
-    # points and centroids (truncated means or stolen points) lie in
-    # [0, pmax] per dimension, so no squared distance exceeds this
-    d2_bound = sum(int(m) * int(m) for m in pmax)
-    if d2_bound >= 2**31:
+    bound = d2_bound(pmax)
+    if bound >= 2**31:
         raise ValueError(
-            f"squared-distance bound {d2_bound} reaches 2^31: int32 "
+            f"squared-distance bound {bound} reaches 2^31: int32 "
             "distances would overflow")
 
 
-def assign_stats(ptsT, w, cur, cents, n, act, pmax):
-    """One fused step over all lanes; returns (new, sums, moved).
+def _raise_launch(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.kmeans_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}: {msg}")
+
+
+def assign_stats(ptsT, w, cur, cents, n, act, pmax, out=None):
+    """One fused step over all lanes; returns (new, sums, moved), the
+    buffers of `out` when it is given.
 
     pmax: host sequence of per-dimension maxima of the (nonnegative) points,
-    from which the squared-distance bound is checked below 2^31.
+    from which the squared-distance bound is checked below 2^31 and the
+    packed path is chosen.
     CUDA tensors launch the kernel, CPU tensors take `assign_stats_ref`."""
-    _check(ptsT, w, cur, cents, n, act, pmax)
+    _check(ptsT, w, cur, cents, n, act, pmax, out)
     dev = ptsT.device
     if dev.type == "cpu":
-        return assign_stats_ref(ptsT, w, cur, cents, n, act)
+        got = assign_stats_ref(ptsT, w, cur, cents, n, act)
+        if out is None:
+            return got
+        new, sums, moved = out
+        keep = ((act != 0)[:, None]
+                & (torch.arange(ptsT.shape[2])[None, :] < n[:, None]))
+        new.copy_(torch.where(keep, got[0], new))
+        sums += got[1]
+        moved += got[2]
+        return out
     if dev.type != "cuda":
         raise ValueError(f"assign_stats runs on cuda or cpu tensors, not {dev}")
     B, d, n_max = ptsT.shape
     k = cents.shape[1]
     lib = load_library()
-    new = torch.zeros((B, n_max), dtype=torch.int32, device=dev)
-    sums = torch.zeros((B, k, d + 1), dtype=torch.int64, device=dev)
-    moved = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.zeros((B, n_max), dtype=torch.int32, device=dev),
+               torch.zeros((B, k, d + 1), dtype=torch.int64, device=dev),
+               torch.zeros((B,), dtype=torch.int32, device=dev))
+    new, sums, moved = out
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.kmeans_assign_stats(
             ptsT.data_ptr(), w.data_ptr(), cur.data_ptr(), cents.data_ptr(),
             n.data_ptr(), act.data_ptr(), new.data_ptr(), sums.data_ptr(),
-            moved.data_ptr(), B, d, n_max, k, stream)
-    if rc != 0:
-        msg = lib.kmeans_error_string(rc).decode()
-        raise RuntimeError(
-            f"kmeans_assign_stats launch failed (B={B}, d={d}, "
-            f"n_max={n_max}, k={k}): CUDA error {rc}: {msg}")
+            moved.data_ptr(), B, d, n_max, k, int(packed_path(pmax, k)),
+            stream)
+    _raise_launch(lib, rc, f"kmeans_assign_stats (B={B}, d={d}, "
+                           f"n_max={n_max}, k={k})")
     with _count_lock:
         assign_stats.launches += 1
-    return new, sums, moved
+    return out
 
 
 assign_stats.launches = 0
@@ -180,3 +229,111 @@ def assign_stats_ref(ptsT, w, cur, cents, n, act):
             feats = torch.cat([p * wv[None, :], wv[None, :]], dim=0).T
             sums[b].index_add_(0, nw, feats)
     return new, sums, moved
+
+
+# ---------------------------------------------------------------------------
+# D3: the step's update
+# ---------------------------------------------------------------------------
+
+def steal_indices(k: int, it, n):
+    """Empty-cluster picks: the Weyl hash of (iteration, cluster) over each
+    lane's valid points. it: an int or an int64 scalar tensor; n int64[B];
+    returns int64[B, k]. The reference computes the hash in int32 with
+    wraparound; ``(((it+1)*2654435769 + j*40503) & 0x7FFFFFFF) % max(n,1)``
+    in int64 is the same number without relying on overflow."""
+    j = torch.arange(k, dtype=torch.int64, device=n.device)
+    mix = ((it + 1) * 2654435769 + j * 40503) & 0x7FFFFFFF
+    return mix[None, :] % n.clamp(min=1)[:, None]
+
+
+def plateau_update(act, new_moved, best, stall):
+    """Stall bookkeeping; the 2% bar is best - best // 50."""
+    improved = new_moved < best - best // 50
+    best = torch.where(act & improved, new_moved, best)
+    stall = torch.where(act, torch.where(improved, 0, stall + 1), stall)
+    return best, stall
+
+
+def _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
+                  state, thresh) -> None:
+    if ptsT.dim() != 3 or cents.dim() != 3:
+        raise ValueError("ptsT must be [B, d, n_max] and cents [B, k, d]")
+    B, d, n_max = ptsT.shape
+    k = cents.shape[1]
+    i32, i64 = torch.int32, torch.int64
+    _check_tensors({
+        "sums": (sums, i64, (B, k, d + 1)), "moved_k": (moved_k, i32, (B,)),
+        "ptsT": (ptsT, i32, (B, d, n_max)), "n": (n, i32, (B,)),
+        "cents": (cents, i32, (B, k, d)), "moved": (moved, i64, (B,)),
+        "best": (best, i64, (B,)), "stall": (stall, i64, (B,)),
+        "act": (act, i32, (B,)), "state": (state, i64, (2,)),
+        "thresh": (thresh, i64, (B,))}, ptsT.device)
+    if k < 1:
+        raise ValueError("k-means needs k >= 1")
+
+
+def step_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
+                state, thresh, stall_lim: int, max_iters: int) -> None:
+    """D3, in place: after a K1 step over the lanes `act` names, set their
+    centroids to the truncated means (the steal for empty clusters), their
+    moved / best / stall to the step's, advance the iteration count
+    state[0], recompute act (moved > thresh, stall < stall_lim, state[0] <
+    max_iters), set state[1] to whether any lane is active, and zero sums
+    and moved_k for the next K1. When no lane was active nothing changes.
+
+    sums int64[B, k, d+1] and moved_k int32[B] are K1's outputs; moved,
+    best, stall, thresh int64[B]; act int32[B]; state int64[2].
+    CUDA tensors launch the kernel, CPU tensors take `step_update_ref`."""
+    _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
+                  state, thresh)
+    dev = ptsT.device
+    if dev.type == "cpu":
+        step_update_ref(sums, moved_k, ptsT, n, cents, moved, best, stall,
+                        act, state, thresh, stall_lim, max_iters)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"step_update runs on cuda or cpu tensors, not {dev}")
+    B, d, n_max = ptsT.shape
+    k = cents.shape[1]
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.kmeans_step_update(
+            sums.data_ptr(), moved_k.data_ptr(), ptsT.data_ptr(),
+            n.data_ptr(), cents.data_ptr(), moved.data_ptr(), best.data_ptr(),
+            stall.data_ptr(), act.data_ptr(), state.data_ptr(),
+            thresh.data_ptr(), B, d, n_max, k, stall_lim, max_iters, stream)
+    _raise_launch(lib, rc, f"kmeans_step_update (B={B}, d={d}, k={k})")
+    with _count_lock:
+        step_update.launches += 1
+
+
+step_update.launches = 0
+
+
+def step_update_ref(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
+                    state, thresh, stall_lim: int, max_iters: int) -> None:
+    """The plain PyTorch version of D3 (any device, no host sync)."""
+    d = ptsT.shape[1]
+    k = cents.shape[1]
+    a = act != 0
+    go = a.any()
+    it = state[0]
+    wsum = sums[:, :, d]
+    means = sums[:, :, :d] // wsum.clamp(min=1)[:, :, None]
+    steal = steal_indices(k, it, n.to(torch.int64))
+    stolen = ptsT.gather(2, steal[:, None, :].expand(-1, d, -1))  # (B, d, k)
+    fresh = torch.where((wsum == 0)[:, :, None],
+                        stolen.transpose(1, 2).to(torch.int64), means)
+    cents.copy_(torch.where(a[:, None, None], fresh.to(torch.int32), cents))
+    mv = moved_k.to(torch.int64)
+    moved.copy_(torch.where(a, mv, moved))
+    new_best, new_stall = plateau_update(a, mv, best, stall)
+    best.copy_(new_best)
+    stall.copy_(new_stall)
+    it_next = it + go.to(torch.int64)
+    live = (moved > thresh) & (stall < stall_lim) & (it_next < max_iters)
+    act.copy_(torch.where(go, live, a).to(torch.int32))
+    state.copy_(torch.stack([it_next, act.any().to(torch.int64)]))
+    sums.zero_()
+    moved_k.zero_()

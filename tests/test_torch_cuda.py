@@ -1,6 +1,7 @@
-"""Card-only checks of the PyTorch port: K1, K2, K3, D1 and D2 on the card
-against their plain versions, and the k-means codecs, the gated Hilbert
-codecs and the gated Huffman codecs on the card against the CPU path.
+"""Card-only checks of the PyTorch port: K1 (packed and unpacked paths, both
+statistics branches), D3, K2, K3, D1 and D2 on the card against their plain
+versions, and the k-means engine and codecs, the gated Hilbert codecs and
+the gated Huffman codecs on the card against the CPU path.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -66,6 +67,139 @@ def test_kernel_matches_plain_version(cuda, B, d, n, k, maxv, ties, frozen):
     for g, w_ in zip(got, want):
         assert g.is_cuda
         assert torch.equal(g.cpu(), w_)
+
+
+@pytest.mark.parametrize("d,pmax,k", [
+    (5, [3839, 2159, 255, 255, 255], 128),  # 3840x2160 voronoi bound
+    (2, [16383, 16383], 8),                 # d = 2 at the coordinate cap
+])
+def test_kernel_unpacked_path_matches_plain_version(cuda, d, pmax, k):
+    assert not tkk.packed_path(pmax, k)
+    rng = np.random.default_rng(d)
+    B, n = 2, 30_000
+    pts = np.stack([rng.integers(0, m + 1, (B, n)) for m in pmax],
+                   axis=1).astype(np.int32)
+    pts[:, :, n // 2:] = pts[:, :, : n - n // 2]       # duplicated points
+    cents = pts[:, :, rng.integers(0, n, k)].transpose(0, 2, 1).copy()
+    cents[:, k // 2:] = cents[:, : k - k // 2]         # duplicated centroids
+    pts[:, :, :k] = cents.transpose(0, 2, 1)           # points on centroids
+    ops = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        pts, rng.integers(1, 9, (B, n)).astype(np.int32),
+        rng.integers(0, k, (B, n)).astype(np.int32), cents,
+        np.full(B, n, np.int32), np.ones(B, np.int32))]
+    want = tkk.assign_stats_ref(*ops)
+    got = tkk.assign_stats(*[t.to(cuda) for t in ops], pmax=pmax)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.cpu(), w_)
+
+
+def _voronoi_operands(k):
+    """Real voronoi points (smooth fields, flat patches: neighbouring pixels
+    share clusters, flat patches tie exactly) at the init state and after
+    one plain step."""
+    rng = np.random.default_rng(4)
+    h, w = 192, 256
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([(xx + yy) % 256, (2 * xx) % 256, (3 * yy) % 256], -1)
+    img[40:100, 30:150] = [90, 200, 10]
+    img[120:, 180:] = rng.integers(0, 256, 3)
+    imgs = torch.from_numpy(np.stack([img, img[::-1]]).astype(np.uint8))
+    ptsT, wt = tkm._voronoi_setup(imgs)
+    cur, cents = tkm._init_state(ptsT, [h * w] * 2, k)
+    ns = torch.full((2,), h * w, dtype=torch.int32)
+    act = torch.ones(2, dtype=torch.int32)
+    return [ptsT, wt, cur, cents, ns, act], [w - 1, h - 1, 255, 255, 255]
+
+
+@pytest.mark.parametrize("k", [128, 16])
+def test_kernel_on_voronoi_points_matches_plain_version(cuda, k):
+    ops, pmax = _voronoi_operands(k)
+    assert tkk.packed_path(pmax, k)
+    for step in range(3):
+        want = tkk.assign_stats_ref(*ops)
+        got = tkk.assign_stats(*[t.to(cuda) for t in ops], pmax=pmax)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g.cpu(), w_), step
+        # the next step from the plain version's state, means included
+        sums, mv = want[1].clone(), want[2].clone()
+        B = ops[0].shape[0]
+        state = torch.tensor([step, 1], dtype=torch.int64)
+        tkk.step_update_ref(sums, mv, ops[0], ops[4], ops[3],
+                            torch.zeros(B, dtype=torch.int64),
+                            torch.full((B,), 10**9, dtype=torch.int64),
+                            torch.zeros(B, dtype=torch.int64), ops[5], state,
+                            torch.zeros(B, dtype=torch.int64), 64, 100)
+        ops[2] = want[0]
+
+
+def _d3_operands(seed, B=5, d=5, k=64, n_max=3000):
+    rng = np.random.default_rng(seed)
+    ptsT = rng.integers(0, 1024, (B, d, n_max)).astype(np.int32)
+    n = np.array([n_max - 11 * b for b in range(B)], np.int32)
+    wsum = rng.integers(1, 500, (B, k))
+    wsum[rng.random((B, k)) < 0.2] = 0                   # empty clusters
+    sums = np.concatenate([rng.integers(0, 1024, (B, k, d)) * wsum[:, :, None]
+                           + rng.integers(0, 500, (B, k, d)),
+                           wsum[:, :, None]], axis=2).astype(np.int64)
+    sums[wsum == 0] = 0
+    act = np.ones(B, np.int32)
+    act[1] = 0                                           # a frozen lane
+    moved = rng.integers(0, 3000, B).astype(np.int64)
+    moved[1] = 0
+    best = moved + rng.integers(0, 40, B)
+    stall = np.array([0, 0, 63, 5, 1], np.int64)[:B]     # lane 2 plateaus
+    return [torch.from_numpy(a) for a in (
+        sums, rng.integers(0, 3000, B).astype(np.int32), ptsT, n,
+        rng.integers(0, 1024, (B, k, d)).astype(np.int32), moved, best, stall,
+        act, np.array([2**31 + 7, 1], np.int64),
+        np.full(B, 2, np.int64))]
+
+
+@pytest.mark.parametrize("max_iters", [2**40, 2**31 + 8])
+def test_d3_matches_plain_version(cuda, max_iters):
+    """D3 on lanes with empty clusters (steal at a large iteration), a
+    frozen lane, a plateauing lane, and max_iters binding or not; then a
+    second step with nothing active changes nothing."""
+    ops = _d3_operands(9)
+    want = [t.clone() for t in ops]
+    got = [t.to(cuda) for t in ops]
+    for _ in range(2):
+        tkk.step_update_ref(*want, 64, max_iters)
+        before = tkk.step_update.launches
+        tkk.step_update(*got, 64, max_iters)
+        torch.cuda.synchronize()
+        assert tkk.step_update.launches == before + 1
+        for g, w_ in zip(got, want):
+            assert torch.equal(g.cpu(), w_)
+    assert int(want[9][0]) == (2**31 + 8 if max_iters == 2**31 + 8
+                               else 2**31 + 9)
+
+
+def test_engine_loop_matches_cpu(cuda, monkeypatch):
+    """`_drive` on the card against the CPU, through a steal, a plateau and
+    a binding max_iters, at two check cadences; voronoi too."""
+    monkeypatch.setattr(tkm, "_STALL_LIMIT", 2)
+    rng = np.random.default_rng(263)
+    steal = rng.integers(0, 4, (780, 2))
+    pts = [steal, steal[:500], rng.integers(0, 256, (600, 2))]
+    for every in (1, 8):
+        monkeypatch.setattr(tkm, "_CHECK_EVERY", every)
+        for max_iters in (10_000, 3):
+            a = tkm.kmeans_batch(pts, 16, max_iters=max_iters,
+                                 on_error="collect", device="cuda")
+            b = tkm.kmeans_batch(pts, 16, max_iters=max_iters,
+                                 on_error="collect", device="cpu")
+            for x, y in zip(a, b):
+                assert type(x) is type(y)
+                if isinstance(x, tuple):
+                    np.testing.assert_array_equal(x[0], y[0])
+                    np.testing.assert_array_equal(x[1], y[1])
+                    assert x[2] == y[2]
+    imgs = rng.integers(0, 256, (3, 40, 56, 3)).astype(np.uint8)
+    imgs[1, :20] = 40
+    for x, y in zip(tkm.voronoi_centroids_batch(imgs, 32, device="cuda"),
+                    tkm.voronoi_centroids_batch(imgs, 32, device="cpu")):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_kernel_wrapper_refuses_before_launch(cuda):

@@ -201,15 +201,17 @@ def test_kmeans_steal_matches(monkeypatch):
     clusters empty and the Weyl steal (with the global iteration counter)
     picks their new centroids."""
     steals = []
-    real = tkm._means_from_sums
+    real = tkk.step_update_ref
 
-    def spy(sums, ptsT, k, it, n):
+    def spy(sums, moved_k, ptsT, n, cents, moved, best, stall, act, state,
+            *rest):
         d = ptsT.shape[1]
-        if bool((sums[:, :, d] == 0).any()):
-            steals.append(it)
-        return real(sums, ptsT, k, it, n)
+        if bool(((sums[:, :, d] == 0) & (act != 0)[:, None]).any()):
+            steals.append(int(state[0]))
+        return real(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
+                    state, *rest)
 
-    monkeypatch.setattr(tkm, "_means_from_sums", spy)
+    monkeypatch.setattr(tkk, "step_update_ref", spy)
     rng = np.random.default_rng(263)
     rng.integers(150, 900), rng.integers(4, 40), rng.integers(2, 4)
     rng.choice([4, 16, 256])  # the draws that picked n=780, k=16, d=2, max 4
@@ -324,3 +326,198 @@ def test_voronoi_centroids_collect_errors_match():
                                         device="cpu")
         assert [str(e) for e in t] == [str(e) for e in j]
         assert all(isinstance(e, ValueError) for e in t)
+
+
+# ---------------------------------------------------------------------------
+# D3 (the step's update) and the loop on the device
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("it", [0, 1, 4999, 2**20 + 3, 2**31 - 2])
+def test_steal_indices_match_jax(it):
+    """The Weyl hash in int64 equals JAX's int32 wraparound form, for large
+    iterations and clusters whose j*40503 wraps int32."""
+    k = 70_000
+    ns = [1, 7, 1_048_576, 2**27 - 1]
+    got = tkk.steal_indices(k, it, torch.tensor(ns, dtype=torch.int64))
+    for b, n in enumerate(ns):
+        want = jkm._steal_indices(k, jnp.int32(it), jnp.int32(n))
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+
+
+def test_plateau_update_matches_jax():
+    rng = np.random.default_rng(31)
+    B = 64
+    act = rng.integers(0, 2, B).astype(bool)
+    best = rng.integers(0, 2**30, B)
+    moved = np.where(rng.integers(0, 2, B) == 1, best - best // 50,
+                     rng.integers(0, 2**30, B))  # on the 2% bar, and not
+    stall = rng.integers(0, 70, B)
+    jb, js = jkm._plateau_update(
+        jnp.asarray(act), *(jnp.asarray(a, jnp.int32)
+                            for a in (moved, best, stall)))
+    tb, ts = tkk.plateau_update(
+        *(torch.from_numpy(a) for a in (act, moved, best, stall)))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def _update_operands(seed=3, B=4, d=3, k=6, n_max=50):
+    rng = np.random.default_rng(seed)
+    ptsT = rng.integers(0, 256, (B, d, n_max)).astype(np.int32)
+    n = np.array([n_max, n_max - 9, 5, n_max], np.int32)[:B]
+    wsum = rng.integers(1, 90, (B, k))
+    wsum[0, 2] = wsum[1, 0] = wsum[1, 5] = 0          # empty clusters
+    sums = np.concatenate([rng.integers(0, 256, (B, k, d)) * wsum[:, :, None],
+                           wsum[:, :, None]], axis=2).astype(np.int64)
+    sums[wsum == 0] = 0
+    t = torch.from_numpy
+    return dict(
+        sums=t(sums), moved_k=t(np.array([20, 12, 0, 40], np.int32)[:B]),
+        ptsT=t(ptsT), n=t(n),
+        cents=t(rng.integers(0, 256, (B, k, d)).astype(np.int32)),
+        moved=t(np.array([30, 12, 3, 50], np.int64)[:B]),
+        best=t(np.array([30, 12, 9, 50], np.int64)[:B]),
+        stall=t(np.array([0, 63, 5, 2], np.int64)[:B]),
+        act=t(np.array([1, 1, 0, 1], np.int32)[:B]),
+        state=t(np.array([2**20 + 5, 1], np.int64)),
+        thresh=t(np.array([0, 0, 3, 45], np.int64)[:B]))
+
+
+def test_step_update_ref_matches_jax_pieces():
+    """D3's plain version: truncated means, JAX's steal for the empty
+    clusters, JAX's plateau bookkeeping on the active lanes, the freeze
+    rule, the iteration count and the zeroed statistics."""
+    ops = _update_operands()
+    before = {key: v.clone() for key, v in ops.items()}
+    tkk.step_update(**ops, stall_lim=64, max_iters=2**21)
+    d, k = ops["ptsT"].shape[1], ops["cents"].shape[1]
+    it = int(before["state"][0])
+    act = before["act"].numpy() != 0
+    for b in range(4):
+        if not act[b]:
+            assert torch.equal(ops["cents"][b], before["cents"][b])
+            continue
+        s = before["sums"][b].numpy()
+        steal = np.asarray(jkm._steal_indices(k, jnp.int32(it),
+                                              jnp.int32(int(before["n"][b]))))
+        want = np.where(s[:, d:] == 0, before["ptsT"][b].numpy()[:, steal].T,
+                        s[:, :d] // np.maximum(s[:, d:], 1))
+        np.testing.assert_array_equal(ops["cents"][b].numpy(), want)
+    jb, js = jkm._plateau_update(
+        jnp.asarray(act), jnp.asarray(before["moved_k"].numpy()),
+        jnp.asarray(before["best"].numpy().astype(np.int32)),
+        jnp.asarray(before["stall"].numpy().astype(np.int32)))
+    np.testing.assert_array_equal(ops["best"].numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(ops["stall"].numpy(), np.asarray(js))
+    moved = np.where(act, before["moved_k"].numpy(), before["moved"].numpy())
+    np.testing.assert_array_equal(ops["moved"].numpy(), moved)
+    live = (moved > before["thresh"].numpy()) & (np.asarray(js) < 64)
+    np.testing.assert_array_equal(ops["act"].numpy(), live.astype(np.int32))
+    assert ops["state"].tolist() == [it + 1, int(live.any())]
+    assert not ops["sums"].any() and not ops["moved_k"].any()
+    # lane 1 reached the stall limit; lane 3 fell to its threshold
+    assert live.tolist() == [True, False, False, False]
+
+
+def test_step_update_ref_binds_max_iters_and_idles():
+    """At max_iters every lane freezes; with no lane active a step changes
+    nothing, not even the iteration count."""
+    ops = _update_operands()
+    it = int(ops["state"][0])
+    tkk.step_update(**ops, stall_lim=64, max_iters=it + 1)
+    assert ops["state"].tolist() == [it + 1, 0]
+    assert not ops["act"].any()
+    frozen = {key: v.clone() for key, v in ops.items()}
+    ops["sums"][0, 0, 0] = 7  # a frozen step's K1 adds nothing; D3 ignores it
+    tkk.step_update(**ops, stall_lim=64, max_iters=it + 1)
+    for key, v in ops.items():
+        if key != "sums":
+            assert torch.equal(v, frozen[key]), key
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
+def test_step_update_wrapper_rejects(bad):
+    ops = _update_operands()
+    err = ValueError
+    if bad == "dtype":
+        ops["moved"], err = ops["moved"].to(torch.int32), TypeError
+    elif bad == "shape":
+        ops["state"] = ops["state"][:1].contiguous()
+    else:
+        ops["thresh"] = ops["thresh"].to("meta")
+    with pytest.raises(err):
+        tkk.step_update(**ops, stall_lim=64, max_iters=10)
+
+
+def test_assign_stats_out_writes_active_lanes_in_place():
+    ptsT, w, cur, cents, n, act = _small_operands(B=3, n=40)
+    n[1] = 33
+    act[2] = 0
+    want = tkk.assign_stats_ref(ptsT, w, cur, cents, n, act)
+    cur0 = cur.clone()
+    sums = torch.zeros((3, 4, 4), dtype=torch.int64)
+    moved = torch.zeros(3, dtype=torch.int32)
+    got = tkk.assign_stats(ptsT, w, cur, cents, n, act, pmax=[255] * 3,
+                           out=(cur, sums, moved))
+    assert got[0] is cur
+    assert torch.equal(cur[0], want[0][0])
+    assert torch.equal(cur[1, :33], want[0][1, :33])
+    assert torch.equal(cur[1, 33:], cur0[1, 33:])   # past n: untouched
+    assert torch.equal(cur[2], cur0[2])             # frozen lane: untouched
+    assert torch.equal(sums, want[1]) and torch.equal(moved, want[2])
+
+
+@pytest.mark.parametrize("pmax,k,packed", [
+    ([4095, 90, 9, 3], 128, True),   # (d2_bound + 1) * pk == 2^31
+    ([4096, 0, 0, 0], 128, False),   # one above
+    ([4095, 90, 9, 3], 100, True),   # pk is the power of two >= k
+    ([4095, 90, 9, 3], 129, False),
+    ([1023, 1023, 255, 255, 255], 128, True),   # 1024^2 voronoi
+    ([2039, 1355, 255, 255, 255], 128, True),   # 2040x1356
+    ([3839, 2159, 255, 255, 255], 128, False),  # 3840x2160
+    ([46340, 0], 1, True),
+])
+def test_packed_path_choice(pmax, k, packed):
+    assert tkk.packed_path(pmax, k) is packed
+
+
+def _cadence_inputs():
+    rng = np.random.default_rng(11)
+    few = rng.integers(0, 4, (780, 2))  # 16 distinct points: steals
+    return [few, few[:500]] + [rng.integers(0, 256, (600, 2))
+                               for _ in range(2)]
+
+
+@pytest.mark.parametrize("max_iters", [10_000, 3])
+def test_drive_check_cadence_does_not_change_results(monkeypatch, max_iters):
+    """The host reads the loop's state every _CHECK_EVERY iterations; the
+    launches after the last lane froze (or after max_iters) change nothing,
+    so every cadence gives the same (iters, cur, cents), and a binding
+    max_iters stops the loop exactly there."""
+    monkeypatch.setattr(tkm, "_STALL_LIMIT", 2)  # plateaus too
+    pts = _cadence_inputs()
+    outs = []
+    for every in (1, 3, 8):
+        monkeypatch.setattr(tkm, "_CHECK_EVERY", every)
+        outs.append(tkm.kmeans_batch(pts, 16, max_iters=max_iters,
+                                     on_error="collect", device="cpu"))
+    for out in outs[1:]:
+        _assert_same_lanes(outs[0], out)
+    iters = {r[2] for r in outs[0] if not isinstance(r, Exception)}
+    if max_iters == 3:
+        assert iters == {3}
+    else:
+        assert max(iters) > 3  # so the bound of 3 binds
+
+
+def test_voronoi_check_cadence_does_not_change_results(monkeypatch):
+    rng = np.random.default_rng(21)
+    imgs = rng.integers(0, 256, (2, 24, 30, 3)).astype(np.uint8)
+    imgs[1, :12] = 40
+    outs = []
+    for every in (1, 3, 8):
+        monkeypatch.setattr(tkm, "_CHECK_EVERY", every)
+        outs.append(tkm.voronoi_centroids_batch(imgs, 16, device="cpu"))
+    for out in outs[1:]:
+        for a, b in zip(outs[0], out):
+            np.testing.assert_array_equal(a, b)

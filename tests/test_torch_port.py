@@ -59,6 +59,43 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert out.stdout.strip() == "[]"
 
 
+def test_native_builds_read_only_the_port_sources(monkeypatch):
+    """Every library the port builds (the C runtime, K1+D3, K2+K3, D1+D2)
+    compiles sources inside `cniic_tpu_torch/`, never a file of the JAX
+    package; the C runtime is the port's own copy of the reference file."""
+    from unittest import mock
+
+    from cniic_tpu_torch import _build, native
+    from cniic_tpu_torch.ops import approx_rle, bitpack, kmeans_kernel
+
+    seen = {}
+
+    def fake_load(name, sources, commands):
+        seen[name] = (list(sources), commands)
+        return mock.MagicMock()
+
+    monkeypatch.setattr(_build, "load", fake_load)
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    for mod, fn in ((native, "_load"), (kmeans_kernel, "load_library"),
+                    (approx_rle, "load_library"), (bitpack, "load_library")):
+        monkeypatch.setattr(mod, "_lib", None)
+        getattr(mod, fn)()
+    assert sorted(seen) == ["approx_rle", "cniic_native", "huffman_dev",
+                            "kmeans_assign"]
+    inside = os.path.join(PKG, "")
+    for name, (sources, commands) in seen.items():
+        assert sources, name
+        named = set(sources) | {a for argv in commands for a in argv
+                                if a.endswith((".c", ".cu"))}
+        for src in named:
+            assert os.path.realpath(src).startswith(inside), (name, src)
+            assert os.path.exists(src), (name, src)
+    assert native._SRC == os.path.join(PKG, "csrc", "cniic_native.c")
+    with open(native._SRC, "rb") as a, open(os.path.join(
+            REPO, "cniic_tpu", "native", "cniic_native.c"), "rb") as b:
+        assert a.read() == b.read()
+
+
 # ---------------------------------------------------------------------------
 # PNG
 # ---------------------------------------------------------------------------
