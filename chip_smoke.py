@@ -26,18 +26,24 @@ Phases:
    the chunked Hilbert scans the chunked
    route gives it: (a) a 1024^2 scan, 1024 chunks, allow 4; (b) the same at
    allow 16; (c) the 2040x1356 scan, 1024 chunks of 2702, allow 4; (d)
-   crafted boundary ties at allow 2 (flags set); (e) allow 64. K3 on 8
-   streams of 16384 pixels opening with crafted boundary runs at allow 4,
-   16 and 64. D1 on the 8 Hufman id streams of the 1024^2 images in one
-   batched launch, on one delta stream through the single route and on a
-   geometric codebook with 63-bit codes; D2's two passes on a 1024^2
-   Hufman payload and a delta payload, and its decline on a deep-code
-   stream; D1 and D2 also against the native C packer and decoder. Then
-   each kernel and its plain version timed on the card in turns (plain,
-   kernel, kernel, plain), each beside its bound (the larger of its bytes
-   over 3.35 TB/s and its operations over the card's peak rate for their
-   type) and roofline share, K3 alone at 8 x 1024^2, and the D1/D2 routes
-   against the C paths (host clock);
+   crafted boundary ties at allow 2 (flags set); (e) allow 64. K3 (its
+   chunk schedule and one walker a stream) on 8 streams of 16384 pixels
+   opening with crafted boundary runs at allow 4, 16 and 64; then the chunk
+   schedule against one walker a stream at full size (the 8 suite scans,
+   the 2040x1356 scan, 8 flat images and 8 flat images with +-4 noise),
+   with the repair pass's sync share and the settle pass's re-walked
+   positions, both schedules in turns and the kernels alone. D1 on the
+   8 Hufman id streams of the 1024^2 images in one batched launch, on one
+   delta stream through the single route and on a geometric codebook with
+   63-bit codes; D2's two passes at K = 0 and the default K, and its root
+   table, on a 1024^2 Hufman payload and a delta payload, and its decline
+   on a deep-code stream; D1 and D2 also against the native C packer and
+   decoder; D2's passes timed at both K in turns. Then each
+   kernel and its plain version timed on the card in turns (plain, kernel,
+   kernel, plain), each beside its bound (the larger of its bytes over
+   3.35 TB/s and its operations over the card's peak rate for their type)
+   and roofline share, and the K2/K3 and D1/D2 routes against the C paths
+   (host clock);
 4. the main paths through the normal entry points, each with the kernel
    counts set to 0 just before it and read just after: `runner.
    measure_all(from_spec(spec, device="cuda"), paths, batch=8)` over 8
@@ -52,12 +58,15 @@ Phases:
    hilbert(rle(4)) and hilbert(zip) with no gate (the host C runtime), then
    hilbert(rle(4)) under CNIIC_CHUNKED_RLE=1 (K2 must have launched and the
    streams must equal the ungated ones byte for byte) and under
-   CNIIC_PALLAS_RLE=1 (K3 must have launched). (iii) hufman, delta,
+   CNIIC_PALLAS_RLE=1 (K3 must have launched: calls and kernel launches
+   are printed). (iii) hufman, delta,
    zip(dict) and zip(back) with no gate (the host C runtime), then hufman,
    delta and cluster-colors(32) under CNIIC_DEVICE_BITPACK=1 (D1 must have
    launched, the streams must equal the ungated ones) and under
-   CNIIC_DEVICE_HUF_DECODE=1 (D2 must have launched and declined nowhere,
-   the MSEs must equal the ungated ones: 0 for the lossless codecs);
+   CNIIC_DEVICE_HUF_DECODE=1 (D2 and its root table must have launched and
+   D2 declined nowhere, the MSEs must equal the ungated ones: 0 for the
+   lossless codecs), then the gated routes' encode/decode MP/s beside the
+   ungated ones;
 5. the card against the CPU: identical streams for two 256^2 crops with the
    k-means codecs, with hilbert(rle(4)) under each of its gates and with
    hufman, delta and cluster-colors(32) under each Huffman gate (identical
@@ -261,13 +270,20 @@ def phase_build(rehearse: bool) -> None:
         rle = _ptxas_entries(fh.read())
     with open(_build.log_path(bitpack.NAME)) as fh:
         rle.update(_ptxas_entries(fh.read()))
-    for label, key in (("K2", "wide_kernel"), ("K3", "batch_kernel"),
-                       ("D1", "pack_kernel"), ("D2", "walk_kernel")):
-        found = [(n, v) for n, v in rle.items() if key in n]
-        check(len(found) == 1, f"ptxas reported {len(found)} {key} entries")
-        regs, st, ld, smem = found[0][1]
-        print(f"  ptxas {label} ({key}): {regs} registers, {smem} B static "
-              f"smem, {st} B spill stores, {ld} B spill loads")
+    for label, key, count in (
+            ("K2", "wide_kernel", 1), ("K3", "batch_kernel", 1),
+            ("K3", "speculate_kernel", 1), ("K3", "repair_kernel", 1),
+            ("K3", "settle_kernel", 1), ("D1", "pack_kernel", 1),
+            ("D2", "walk_kernel", 2), ("D2", "table_kernel", 1)):
+        found = sorted((n, v) for n, v in rle.items() if key in n)
+        check(len(found) == count, f"ptxas reported {len(found)} {key} "
+              f"entries, not {count}")
+        for name, (regs, st, ld, smem) in found:
+            inst = re.search(r"ILb([01])E", name)
+            inst = f"<{'true' if inst.group(1) == '1' else 'false'}>" if inst \
+                else ""
+            print(f"  ptxas {label} ({key}{inst}): {regs} registers, {smem} B "
+                  f"static smem, {st} B spill stores, {ld} B spill loads")
 
 
 # ---------------------------------------------------------------------------
@@ -635,12 +651,13 @@ def phase_rle_kernels(imgs, dev, card, sz):
         want = approx_rle.approx_rle_batch_ref(rgb, ln, float(allow))
         t_ref = time.perf_counter() - t0
         got = approx_rle.batch_records(rgb, ln, float(allow))
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        err = _rle_err([got], [want])
+        one = approx_rle.batch_records(rgb, ln, float(allow), chunk=L)
+        _sync(dev)
+        err = _rle_err([got, one], [want, want])
         k3_err = max(k3_err, err)
         print(f"  K3 allow {allow}: 8 streams x {L} opening with crafted "
-              f"boundary runs: max |err| {err} (plain version {t_ref:.2f} s)")
+              f"boundary runs, chunks of {approx_rle.CHUNK} and one walker a "
+              f"stream: max |err| {err} (plain version {t_ref:.2f} s)")
         check(err == 0, f"K3 differs from its plain version at allow {allow}")
         if allow == 4:
             k3_timed = (rgb, ln)
@@ -668,12 +685,15 @@ def phase_rle_kernels(imgs, dev, card, sz):
               f"{k2:.4f} ms per launch, plain version {p1:.1f} / {p2:.1f} ms "
               f"(plain, kernel, kernel, plain); bound {b_ms * 1e3:.3f} us "
               f"({b_by}), roofline share {2 * b_ms / (k1 + k2):.5f}")
-    big = np.stack(scans[:8])
-    rgb8, ln8 = approx_rle._position_major(big, [big.shape[1]] * 8, dev)
-    t_big = _time_ms(lambda: approx_rle.batch_records(rgb8, ln8, 4.0), 3, dev,
-                     warmup=1)
-    print(f"  time K3 alone (8 x {big.shape[1]}, the gated batch of phase 4) "
-          f"on {card}: {t_big:.3f} ms per launch")
+    one_16k = _pair_turns(
+        lambda: approx_rle.batch_records(rgb3, ln3, 4.0, chunk=L),
+        lambda: approx_rle.batch_records(rgb3, ln3, 4.0), sz["iters"], dev)
+    print(f"  time K3 (8 x {L}) on {card}: one walker a stream "
+          f"{one_16k[0][0]:.4f} / {one_16k[0][1]:.4f} ms, chunks of "
+          f"{approx_rle.CHUNK} {one_16k[1][0]:.4f} / {one_16k[1][1]:.4f} ms "
+          "(one, chunks, chunks, one)")
+    big, k3_full = _k3_full_size(scans, imgs, dev, card, sz)
+    k3_err = max(k3_err, k3_full["err"])
     # where a gated encode's time goes: the whole host-side route against the
     # exact-f64 host engine on the same scans (host clock)
     t0 = time.perf_counter()
@@ -684,14 +704,109 @@ def phase_rle_kernels(imgs, dev, card, sz):
     approx_rle.approx_rle_batch(big, [big.shape[1]] * 8, 4.0, device=dev)
     t_batch = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
+    rgb8, ln8 = approx_rle._position_major(big, [big.shape[1]] * 8, dev)
+    recs8 = approx_rle.batch_records(rgb8, ln8, 4.0)
+    _sync(dev)
+    t_kernel = (time.perf_counter() - t0) * 1e3
+    host = approx_rle._stream_major(recs8)
+    t_down = (time.perf_counter() - t0) * 1e3 - t_kernel
+    t0 = time.perf_counter()
+    for j in range(8):
+        approx_rle._runs(host[j])
+    t_runs = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
     for sc in scans[:8]:
         approx_rle.approx_rle_chunked(sc, 4, device=dev)
     t_chunked = (time.perf_counter() - t0) * 1e3
     print(f"  8 scans of {big.shape[1]} px at allow 4: native engine "
-          f"{t_native:.1f} ms, approx_rle_batch (K3 route) {t_batch:.1f} ms, "
+          f"{t_native:.1f} ms, approx_rle_batch (K3 route) {t_batch:.1f} ms "
+          f"(upload + K3 {t_kernel:.1f}, stream-major download "
+          f"{t_down:.1f}, record extraction {t_runs:.1f}), "
           f"approx_rle_chunked (K2 route) {t_chunked:.1f} ms")
     return {"K2": (k2_err, timings["K2"]), "K3": (k3_err, timings["K3"]),
-            "K3 8x1024^2 ms": t_big}
+            "K3 one-walker 8x16384 ms": sum(one_16k[0]) / 2,
+            "K3 full": k3_full}
+
+
+def _pair_turns(a, b, iters, dev, warmup=1):
+    """((a ms, a ms), (b ms, b ms)) timed a, b, b, a."""
+    a1 = _time_ms(a, iters, dev, warmup=warmup)
+    b1 = _time_ms(b, iters, dev, warmup=warmup)
+    b2 = _time_ms(b, iters, dev, warmup=warmup)
+    a2 = _time_ms(a, iters, dev, warmup=warmup)
+    return (a1, a2), (b1, b2)
+
+
+def _k3_full_size(scans, imgs, dev, card, sz):
+    """K3's chunk schedule against the one-walker schedule (chunk >= L) at
+    full size: the 8 suite scans (the gated batch of phase 4), the
+    2040x1356 scan, 8 flat images and 8 flat images with +-4 noise, all at
+    allow 4. Exact equality, the schedule's statistics, both schedules
+    timed in turns."""
+    big = np.stack(scans[:8])
+    n = big.shape[1]
+    rng = np.random.default_rng(12)
+    colours = rng.integers(0, 256, (8, 1, 3))
+    flat = np.broadcast_to(colours, big.shape).astype(np.uint8)
+    noisy = np.clip(colours + rng.integers(-4, 5, big.shape), 0,
+                    255).astype(np.uint8)
+    cases = {"8 x 1024^2 suite scans": big, "2040x1356 scan": scans[-1][None],
+             "8 flat images": flat, "8 flat images + noise (+-4)": noisy}
+    rehearse = dev.type != "cuda"
+    print(f"  K3 at full size, chunks of {approx_rle.CHUNK} against one "
+          "walker a stream (exact equality), allow 4:")
+    out = {"err": 0}
+    for name, batch in cases.items():
+        rgb, ln = approx_rle._position_major(batch, [batch.shape[1]]
+                                             * batch.shape[0], dev)
+        one = lambda: approx_rle.batch_records(  # noqa: E731
+            rgb, ln, 4.0, chunk=rgb.shape[0])
+        new = lambda: approx_rle.batch_records(rgb, ln, 4.0)  # noqa: E731
+        want = one()
+        got, seams, unsynced, walked = approx_rle.batch_records_stats(
+            rgb, ln, 4.0)
+        _sync(dev)
+        err = _rle_err([got], [want])
+        out["err"] = max(out["err"], err)
+        check(err == 0, f"K3's chunk schedule differs from one walker a "
+              f"stream on {name}")
+        share = 1 - unsynced / seams if seams else 1.0
+        line = (f"    {name} ({rgb.shape[1]} x {rgb.shape[0]}): max |err| "
+                f"{err}; repair pass synced {seams - unsynced} of {seams} "
+                f"seams ({share:.4f}), settle pass re-walked {walked} "
+                f"positions ({walked / rgb.numel():.4f} of them)")
+        if not rehearse or name.startswith("8 x"):
+            (o1, o2), (c1, c2) = _pair_turns(one, new, 1 if rehearse else 2,
+                                             dev, warmup=0 if rehearse else 1)
+            line += (f"; one walker {o1:.3f} / {o2:.3f} ms, chunks "
+                     f"{c1:.4f} / {c2:.4f} ms (one, chunks, chunks, one), "
+                     f"{(o1 + o2) / (c1 + c2):.1f}x")
+            out[name] = {"ms": (c1 + c2) / 2, "one_walker_ms": (o1 + o2) / 2,
+                         "seams": seams, "unsynced": unsynced,
+                         "walked": walked}
+        print(line)
+        if name.startswith("8 x"):
+            b_ms, b_by = bound(_nbytes(rgb, ln, got), 30.0 * rgb.numel(),
+                               F32_OPS_PER_S)
+            out["bound"] = (b_ms, b_by)
+            suite = (rgb, ln)
+    ms = out["8 x 1024^2 suite scans"]["ms"]
+    b_ms, b_by = out["bound"]
+    print(f"  K3 bound at 8 x {n}: {b_ms * 1e3:.3f} us ({b_by}); roofline "
+          f"share of the chunk schedule {b_ms / ms:.5f} on {card}")
+    if not rehearse:
+        rgb, ln = suite
+        keys = ("speculate_kernel", "repair_kernel", "settle_kernel")
+        split = {key.split("_")[0]: _kernels_ms(
+            lambda: approx_rle.batch_records(rgb, ln, 4.0), (key,), dev)
+            for key in keys}
+        alone = sum(split.values())
+        out["device_ms"] = alone
+        print(f"  K3 at 8 x {n}, chunks of {approx_rle.CHUNK}, kernels alone "
+              f"(profiler) on {card}: {alone:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"), roofline share {b_ms / alone:.5f}")
+    return big, out
 
 
 # ---------------------------------------------------------------------------
@@ -751,26 +866,42 @@ def _tree_stream(ids, freqs):
 
 
 def _d2_case(name, stream, n, dev):
-    """Both passes of D2 against the plain version on the card, and the
-    device decode against the native decoder (or both routes declining);
-    returns (max |err|, declined, pass-1 operands)."""
+    """Both passes of D2 at K = 0 and the default K, and its root table,
+    against the plain versions on the card, and the device decode against
+    the native decoder (or both routes declining); returns (max |err|,
+    declined, pass-1 operands, pass-1 bound, pass-2 operands and bound or
+    None)."""
     payload, left, right, symbol = stream
     pay, lr2, s1, e1, chunk, chunk_ends, total = hufdec.lanes(
         np.frombuffer(payload, np.uint8), left, right, symbol, dev)
+    ks = (0, hufdec.TABLE_BITS)
+    err = _max_err([hufdec.root_table(lr2, ks[1])],
+                   [hufdec.root_table_ref(lr2.cpu(), ks[1])])
     t0 = time.perf_counter()
     want = hufdec.walk_ref(pay, lr2, s1, e1, total)
     _sync(dev)
     t_ref = time.perf_counter() - t0
-    got = hufdec.walk(pay, lr2, s1, e1, total)
-    err = _max_err(got[:2], want[:2])
-    check(got[2] == want[2], f"D2 ({name}): pass 1 frozen flags differ")
+    for K in ks:
+        got = hufdec.walk(pay, lr2, s1, e1, total, K=K)
+        err = max(err, _max_err(got[:2], want[:2]))
+        check(got[2] == want[2], f"D2 ({name}, K {K}): pass 1 frozen flags "
+              "differ")
     composed = hufdec.compose(got[0], got[1], n) if got[2] else None
+    pass2 = None
     if composed is not None:
         offs, out_start = (torch.from_numpy(a).to(dev) for a in composed)
         args = (pay, lr2, chunk + offs, chunk_ends, total)
-        got2 = hufdec.walk(*args, out_start=out_start, n_symbols=n)
         want2 = hufdec.walk_ref(*args, out_start=out_start, n_symbols=n)
-        err = max(err, _max_err([got2[1], got2[3]], [want2[1], want2[3]]))
+        for K in ks:
+            got2 = hufdec.walk(*args, out_start=out_start, n_symbols=n, K=K)
+            err = max(err, _max_err([got2[0], got2[1], got2[3]],
+                                    [want2[0], want2[1], want2[3]]))
+            check(got2[2] == want2[2], f"D2 ({name}, K {K}): pass 2 frozen "
+                  "flags differ")
+        walked2 = int((got2[0].to(torch.int64) + chunk_ends - args[2]).sum())
+        pass2 = ((args, out_start, n), bound(
+            _nbytes(pay, lr2, args[2], chunk_ends, out_start, *got2[:2],
+                    got2[3]), 8.0 * walked2))
     dec = hufdec.decode_payload_device(payload, left, right, symbol, n,
                                        device=dev)
     declined = composed is None
@@ -781,15 +912,39 @@ def _d2_case(name, stream, n, dev):
                                                     symbol, 0, n)),
               f"D2 ({name}): ids differ from the native decoder's")
     print(f"  D2 ({name}) {len(payload)} B payload, {s1.numel()} pass-1 "
-          f"lanes, {chunk.numel()} pass-2 lanes: max |err| {err}, "
+          f"lanes, {chunk.numel()} pass-2 lanes, K = {ks[0]} and {ks[1]}, "
+          f"the root table: max |err| {err}, "
           + ("declined" if declined else "ids equal the native decoder's")
           + f" (plain pass 1 {t_ref:.2f} s)")
     check(err == 0, f"D2 differs from its plain version in {name}")
-    # pass 1: about 8 integer operations a bit walked (exit - end + end -
-    # start bits a lane)
+    # about 8 integer operations a bit walked (exit - end + end - start bits
+    # a lane)
     walked = int((got[0].to(torch.int64) + e1 - s1).sum())
     return err, declined, (pay, lr2, s1, e1, total), bound(
-        _nbytes(pay, lr2, s1, e1, got[0], got[1]), 8.0 * walked)
+        _nbytes(pay, lr2, s1, e1, got[0], got[1]), 8.0 * walked), pass2
+
+
+def _kernels_ms(fn, keys, dev, calls: int = 10) -> float:
+    """Device ms a call of the kernels named by `keys` (one launch of each
+    a call), from torch.profiler: the sum over the keys of the mean span of
+    the kernels whose names hold the key (host time in a rehearsal)."""
+    if dev.type != "cuda":
+        return _time_ms(fn, 1, dev, warmup=0)
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = 0.0
+    events = kmeans_profile._device_intervals(prof)
+    for key in keys:
+        spans = [e - s for s, e, name in events if key in name]
+        check(spans, f"the profiler saw no kernel named *{key}*")
+        ms += sum(spans) / len(spans) / 1e3
+    return ms
 
 
 def phase_huffman_kernels(imgs, dev, card, sz):
@@ -810,16 +965,17 @@ def phase_huffman_kernels(imgs, dev, card, sz):
     d1_err = max(d1_err, err)
 
     huf = _tree_stream(stats[0][2], stats[0][1])
-    d2_err, declined, d2_ops, d2_bound = _d2_case("a Hufman", huf,
-                                                  stats[0][2].size, dev)
+    d2_err, declined, d2_ops, d2_bound, d2_pass2 = _d2_case(
+        "a Hufman", huf, stats[0][2].size, dev)
     check(not declined, "D2 declined the Hufman payload")
-    err, declined, _, _ = _d2_case("b delta", _tree_stream(dinv, dcounts),
-                                   dinv.size, dev)
+    err, declined, _, _, _ = _d2_case("b delta", _tree_stream(dinv, dcounts),
+                                      dinv.size, dev)
     check(not declined, "D2 declined the delta payload")
     d2_err = max(d2_err, err)
     deep_ids = rng.integers(0, 40, 30_000).astype(np.int32)
     deep = _tree_stream(deep_ids, 2 ** np.arange(40, dtype=np.uint64))
-    err, declined, _, _ = _d2_case("c deep codes", deep, deep_ids.size, dev)
+    err, declined, _, _, _ = _d2_case("c deep codes", deep, deep_ids.size,
+                                      dev)
     d2_err = max(d2_err, err)
     on_cpu = hufdec.decode_payload_device(*deep, deep_ids.size, device="cpu")
     check((on_cpu is None) == declined,
@@ -834,6 +990,7 @@ def phase_huffman_kernels(imgs, dev, card, sz):
         "D2": _time_turns(lambda: hufdec.walk(*d2_ops),
                           lambda: hufdec.walk_ref(*d2_ops),
                           sz["iters"], dev)}
+    d2 = _d2_timings(d2_ops, d2_pass2, dev, card, sz)
     t_check = _time_ms(lambda: bitpack._check(*d1_ops), sz["iters"], dev)
     print(f"  D1's input checks alone (one host sync): {t_check:.4f} ms")
     for name, shape, (b_ms, b_by) in (
@@ -871,9 +1028,44 @@ def phase_huffman_kernels(imgs, dev, card, sz):
           f"decode 1 stream C {t_cdec:.2f} ms, decode_payload_device (D2 "
           f"route) {t_ddec:.2f} ms")
     return {"D1": (d1_err, timings["D1"]), "D2": (d2_err, timings["D2"]),
-            "D1 check ms": t_check,
+            "D1 check ms": t_check, "D2 passes": d2,
             "routes ms": {"pack_c_8": t_cpack, "pack_d1_8": t_dpack,
                           "decode_c_1": t_cdec, "decode_d2_1": t_ddec}}
+
+
+def _d2_timings(d2_ops, d2_pass2, dev, card, sz):
+    """D2's two passes on the 1024^2 Hufman payload at K = 0 and the
+    default K, in turns (K 0, K, K, 0) through the wrapper (CUDA events) and
+    the kernels alone (profiler), and the plain pass 2."""
+    (args, out_start, n), (b2_ms, b2_by) = d2_pass2
+    kd = hufdec.TABLE_BITS
+    passes = {
+        "pass 1": lambda K: hufdec.walk(*d2_ops, K=K),
+        "pass 2": lambda K: hufdec.walk(*args, out_start=out_start,
+                                        n_symbols=n, K=K)}
+    keys = {0: ("walk_kernel",), kd: ("walk_kernel", "table_kernel")}
+    out = {"K": kd, "bound_ms_pass2": b2_ms, "bound_by_pass2": b2_by}
+    for name, fn in passes.items():
+        (z1, z2), (t1, t2) = _pair_turns(lambda: fn(0), lambda: fn(kd),
+                                         sz["iters"], dev)
+        dz = _kernels_ms(lambda: fn(0), keys[0], dev)
+        dt = _kernels_ms(lambda: fn(kd), keys[kd], dev)
+        key = name.replace(" ", "")
+        out.update({f"ms_{key}": (t1 + t2) / 2, f"ms_{key}_k0": (z1 + z2) / 2,
+                    f"device_ms_{key}": dt, f"device_ms_{key}_k0": dz})
+        print(f"  time D2 {name} on {card}: K = 0 {z1:.4f} / {z2:.4f} ms, "
+              f"K = {kd} {t1:.4f} / {t2:.4f} ms per call (K 0, K, K, 0); "
+              f"kernels alone (profiler) {dz:.4f} and {dt:.4f} ms, "
+              f"{dz / dt:.2f}x")
+    t0 = time.perf_counter()
+    hufdec.walk_ref(*args, out_start=out_start, n_symbols=n)
+    _sync(dev)
+    out["plain_ms_pass2"] = (time.perf_counter() - t0) * 1e3
+    print(f"  D2 pass 2 ({args[2].numel()} lanes): plain version "
+          f"{out['plain_ms_pass2']:.1f} ms; bound {b2_ms * 1e3:.3f} us "
+          f"({b2_by}), roofline share {b2_ms / out['device_ms_pass2']:.5f} "
+          "of the kernels alone")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -989,12 +1181,18 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
                           ("K3", approx_rle.batch_records)):
         gate_name = GATES[0] if name == "K2" else GATES[1]
         counter.launches = 0
+        approx_rle.batch_records.kernel_launches = 0
         with gate(gate_name):
             runs[(GATED, gate_name)] = _measured(
                 GATED, paths, dev, card, f"{out_dir}_{gate_name.lower()}")
         launches[name] = counter.launches
+        if name == "K3":
+            launches["K3 kernels"] = approx_rle.batch_records.kernel_launches
         print(f"  {name} launches over {GATED} under {gate_name}=1: "
-              f"{launches[name]}")
+              f"{launches[name]}" + (
+                  f" calls, {approx_rle.batch_records.kernel_launches} "
+                  f"kernel launches (chunks of {approx_rle.CHUNK})"
+                  if name == "K3" else ""))
     chunked = runs[(GATED, GATES[0])][2]["blobs"]
     check(chunked == runs[GATED][2]["blobs"],
           f"{GATED}: the chunked route's streams differ from the ungated ones")
@@ -1006,14 +1204,17 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
     for name, gate_name, counter in (("D1", HUF_GATES[0], bitpack.pack_words),
                                      ("D2", HUF_GATES[1], hufdec.walk)):
         counter.launches = 0
+        hufdec.root_table.launches = 0
         hufdec.declines = 0
         with gate(gate_name):
             for spec in HUF_SPECS:
                 runs[(spec, gate_name)] = _measured(
                     spec, paths, dev, card, f"{out_dir}_{gate_name.lower()}")
         launches[name] = counter.launches
+        table = (f" (and {hufdec.root_table.launches} root-table launches, "
+                 f"K = {hufdec.TABLE_BITS})" if name == "D2" else "")
         print(f"  {name} launches over {', '.join(HUF_SPECS)} under "
-              f"{gate_name}=1: {launches[name]}; D2 declines "
+              f"{gate_name}=1: {launches[name]}{table}; D2 declines "
               f"{hufdec.declines}")
         for spec in HUF_SPECS:
             _, res, rec = runs[(spec, gate_name)]
@@ -1025,8 +1226,19 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
                   "ones")
         if name == "D2":
             check(hufdec.declines == 0, "D2 declined on the suite images")
+            launches["D2 root table"] = hufdec.root_table.launches
     print(f"  {', '.join(HUF_SPECS)}: the streams and MSEs under both Huffman "
           "gates equal the ungated ones")
+    print(f"  gated routes beside the ungated ones on {card} (encode / decode "
+          "MP/s):")
+    for spec, gates in ((GATED, GATES), ("hufman", HUF_GATES),
+                        ("delta", HUF_GATES)):
+        row = [("no gate", runs[spec][1])] + [
+            (g, runs[(spec, g)][1]) for g in gates]
+        print(f"    {spec}: " + "; ".join(
+            f"{g} {r.encode_mps:.3f} / "
+            f"{(r.megapixels / r.decode_s if r.decode_s else 0.0):.3f}"
+            for g, r in row))
     if dev.type == "cuda":
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on its main path")
@@ -1126,7 +1338,22 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2,
             "bound_ms": kb_ms, "bound_by": kb_by, "library_ms": None})
-    kernels[-1]["ms_8x1024x1024"] = rle["K3 8x1024^2 ms"]
+    full = rle["K3 full"]
+    suite = full["8 x 1024^2 suite scans"]
+    kernels[-1].update({
+        "chunk": approx_rle.CHUNK, "kernel_launches": launches["K3 kernels"],
+        "ms_one_walker": rle["K3 one-walker 8x16384 ms"],
+        "ms_8x1024x1024": suite["ms"],
+        "ms_8x1024x1024_one_walker": suite["one_walker_ms"],
+        "bound_ms_8x1024x1024": full["bound"][0],
+        "sync_share_8x1024x1024": (1 - suite["unsynced"] / suite["seams"]
+                                   if suite["seams"] else 1.0),
+        "settle_walked_8x1024x1024": suite["walked"],
+        "device_ms_8x1024x1024": full.get("device_ms")})
+    if "8 flat images" in full:
+        kernels[-1].update({
+            "ms_flat": full["8 flat images"]["ms"],
+            "ms_flat_one_walker": full["8 flat images"]["one_walker_ms"]})
     for name, fn, replaces in (("D1", "huf_pack", D1_REPLACES),
                                ("D2", "huf_walk", D2_REPLACES)):
         err, (k_ms, p_ms, kb_ms, kb_by) = huf[name]
@@ -1137,6 +1364,8 @@ def main() -> int:
             "bound_ms": kb_ms, "bound_by": kb_by, "library_ms": None})
     kernels[-2]["check_ms"] = huf["D1 check ms"]
     kernels[-1]["routes_ms"] = huf["routes ms"]
+    kernels[-1].update(huf["D2 passes"])
+    kernels[-1]["root_table_launches"] = launches["D2 root table"]
     print(json.dumps({"kernels": kernels}))
     if dev.type == "cuda":
         kind, count, platform = (torch.cuda.get_device_name(0),

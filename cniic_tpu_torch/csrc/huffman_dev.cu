@@ -34,13 +34,24 @@
 //   symbol straight to out_ids[out_start[lane] + rank], dropping indices at
 //   or past n_symbols (JAX recorded a (steps, C) buffer and compacted it
 //   with a cumsum-rank scatter because the TPU has no scatters).
-//   What bounds it: latency. Every bit is one dependent gather from lr2,
-//   which for a Hufman tree of ~46k colours is ~740 KB, too large for
-//   shared memory; it lives in L2 and is read through __ldg. The payload
-//   byte is held in a register and reloaded only when the walk crosses into
-//   the next byte, so the dependent chain is one L1/L2 load a bit. Pass 1's
-//   C x E lanes (~140k for a 1024^2 Hufman payload) keep every SM's warp
-//   slots full, which hides that latency; pass 2's C lanes cannot.
+//   What bounds it: latency. A bit is one dependent gather from lr2, which
+//   for a Hufman tree of ~46k colours is ~740 KB, too large for shared
+//   memory (it lives in L2, read through __ldg), and codes average ~14 bits.
+//   With K = 0 the walk is exactly that, the payload byte held in a
+//   register: the dependent chain is one L1/L2 load a bit, which pass 1's
+//   C x E lanes (~117k for a 1024^2 Hufman payload) partly hide and pass 2's
+//   C lanes cannot. With K >= 1, `table_kernel` first walks every K-bit
+//   prefix from the root once (2^K threads) and each block of the walk
+//   copies that table into shared memory; at the root one shared-memory
+//   lookup, indexed by the next K bits of a two-word register window of the
+//   payload (one funnel shift), stands for the bit steps up to the next
+//   visit to the root, so a code of <= K bits costs one lookup and a longer
+//   one K bits less of the chain. A lookup is taken only with K payload
+//   bits and K steps of the budget left, so the freeze test and the budget
+//   stop the walk at the same steps as one bit at a time. Each step makes
+//   one load, from the table or from lr2 through one generic pointer, so
+//   pass 1's lanes (the 32 entry offsets of one chunk in a warp, at the
+//   root and inside codes at once) do not split into two paths.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cniic_tpu_torch/ops/bitpack.py). The launchers have
@@ -88,41 +99,149 @@ pack_kernel(const int32_t* __restrict__ ids, const uint32_t* __restrict__ hi,
   if (w2 && base + 2 < n_words) atomicOr(row + base + 2, w2);
 }
 
+// A lane's bits: the big-endian payload words w and w + 1 in hi and lo
+// (bits [32 w, 32 w + 64)), the word after them already loading in nx.
+// Words at or past the payload's end read as 0 (no decision reads them);
+// the payload pointer is 4-byte aligned (the caller sees to it).
+struct Bits {
+  const uint8_t* payload;
+  int n_bytes;
+  int w;
+  uint32_t hi, lo, nx;
+
+  __device__ __forceinline__ uint32_t word(int i) const {
+    if (4 * i + 4 <= n_bytes)
+      return __byte_perm(__ldg(reinterpret_cast<const uint32_t*>(payload) + i),
+                         0, 0x0123);
+    uint32_t v = 0;
+    for (int b = 0; b < 4; ++b)
+      v = (v << 8) | (4 * i + b < n_bytes ? __ldg(payload + 4 * i + b) : 0u);
+    return v;
+  }
+
+  __device__ __forceinline__ void start(int bitpos) {
+    w = bitpos >> 5;
+    hi = word(w);
+    lo = word(w + 1);
+    nx = word(w + 2);
+  }
+
+  // the 32 bits at bitpos, which lies at most 63 bits past 32 w: one step
+  // moves at most 14 bits, so one shift of the window a step keeps up
+  __device__ __forceinline__ uint32_t top(int bitpos) {
+    if (bitpos - 32 * w >= 32) {
+      hi = lo;
+      lo = nx;
+      ++w;
+      nx = word(w + 2);
+    }
+    return __funnelshift_l(lo, hi, bitpos - 32 * w);
+  }
+};
+
+// The root table: entry e of 2^K is the walk of the K bits of e (MSB
+// first) from the root, as v * 32 + n: it returned to the root after n <= K
+// bits (v < 0: through leaf -v-1; v == 0: through a missing child), or it
+// is at node v > 0 after all K bits.
+__global__ void __launch_bounds__(kWalkThreads)
+table_kernel(const int32_t* __restrict__ lr2, int32_t* __restrict__ table,
+             int K) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (1 << K)) return;
+  int node = 0;
+  for (int i = 0; i < K; ++i) {
+    const int v = __ldg(lr2 + 2 * node + ((e >> (K - 1 - i)) & 1));
+    if (v <= 0) {
+      table[e] = v * 32 + i + 1;
+      return;
+    }
+    node = v;
+  }
+  table[e] = node * 32 + K;
+}
+
+// One lane walks from bit `starts[j]` until it is frozen or the step budget
+// runs out. kTable: at the root, with K payload bits and K steps of the
+// budget left, one lookup in the block's copy of the root table takes the
+// bit steps up to the next visit to the root (or K steps to a node), which
+// is where the freeze test and the budget could next stop the walk; the
+// walk goes on bit by bit from a node, near the payload's end and near the
+// budget's.
+template <bool kTable>
 __global__ void __launch_bounds__(kWalkThreads)
 walk_kernel(const uint8_t* __restrict__ payload,
             const int32_t* __restrict__ lr2,
+            const int32_t* __restrict__ table, int K,
             const int32_t* __restrict__ starts,
             const int32_t* __restrict__ ends, int L, int total_bits,
             int n_steps, const int32_t* __restrict__ out_start,
             int32_t* __restrict__ out_ids, int n_symbols,
             int32_t* __restrict__ exits, int32_t* __restrict__ counts,
             int32_t* __restrict__ unfrozen) {
+  extern __shared__ int32_t root[];
+  if (kTable) {
+    for (int e = threadIdx.x; e < (1 << K); e += blockDim.x)
+      root[e] = __ldg(table + e);
+    __syncthreads();
+  }
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= L) return;
   const int end = ends[j];
   const int first = out_ids ? out_start[j] : 0;
   int node = 0, bitpos = starts[j], cnt = 0;
-  int byte_at = -1;
-  int byte = 0;
-  for (int s = 0; s < n_steps; ++s) {
-    if ((node == 0 && bitpos >= end) || bitpos >= total_bits) break;
-    const int bi = bitpos >> 3;
-    if (bi != byte_at) {
-      byte = __ldg(payload + bi);
-      byte_at = bi;
-    }
-    const int v = __ldg(lr2 + 2 * node + ((byte >> (7 - (bitpos & 7))) & 1));
-    if (v < 0) {
-      if (out_ids) {
-        const int t = first + cnt;
-        if (t < n_symbols) out_ids[t] = -v - 1;
+  if (kTable) {
+    Bits bits{payload, (total_bits + 7) >> 3};
+    bits.start(bitpos);
+    int s = 0;
+    while (s < n_steps) {
+      if ((node == 0 && bitpos >= end) || bitpos >= total_bits) break;
+      // one load a step, from the table or from lr2, so that the lanes of a
+      // warp (at the root or inside a code) do not split into two paths
+      const uint32_t t = bits.top(bitpos);
+      const bool at_root =
+          node == 0 && bitpos + K <= total_bits && s + K <= n_steps;
+      const int32_t* src =
+          at_root ? root + (t >> (32 - K)) : lr2 + 2 * node + (t >> 31);
+      const int e = *src;
+      const int v = at_root ? e >> 5 : e;
+      const int n = at_root ? e & 31 : 1;
+      if (v < 0) {
+        if (out_ids) {
+          const int t_out = first + cnt;
+          if (t_out < n_symbols) out_ids[t_out] = -v - 1;
+        }
+        ++cnt;
+        node = 0;
+      } else {
+        node = v;
       }
-      ++cnt;
-      node = 0;
-    } else {
-      node = v;
+      bitpos += n;
+      s += n;
     }
-    ++bitpos;
+  } else {
+    int byte_at = -1;
+    int byte = 0;
+    for (int s = 0; s < n_steps; ++s) {
+      if ((node == 0 && bitpos >= end) || bitpos >= total_bits) break;
+      const int bi = bitpos >> 3;
+      if (bi != byte_at) {
+        byte = __ldg(payload + bi);
+        byte_at = bi;
+      }
+      const int v =
+          __ldg(lr2 + 2 * node + ((byte >> (7 - (bitpos & 7))) & 1));
+      if (v < 0) {
+        if (out_ids) {
+          const int t = first + cnt;
+          if (t < n_symbols) out_ids[t] = -v - 1;
+        }
+        ++cnt;
+        node = 0;
+      } else {
+        node = v;
+      }
+      ++bitpos;
+    }
   }
   if (!((node == 0 && bitpos >= end) || bitpos >= total_bits)) *unfrozen = 1;
   exits[j] = bitpos - end;
@@ -154,22 +273,57 @@ int huf_pack(const void* ids, const void* hi, const void* lo, const void* lens,
 // D2 on `stream`: payload uint8 [total_bits / 8], lr2 int32 [2 * nodes],
 // starts/ends int32 [L] -> exits/counts int32 [L], unfrozen int32 [1]
 // (zeroed by the caller, set to 1 if a lane did not freeze). Pass 2 when
-// out_ids is not null: out_start int32 [L], out_ids int32 [n_symbols].
+// out_ids is not null: out_start int32 [L], out_ids int32 [n_symbols]. K = 0
+// walks bit by bit; 1 <= K <= 14 walks with `table`, the root table
+// huf_root_table built (int32 [2^K]).
 int huf_walk(const void* payload, const void* lr2, const void* starts,
              const void* ends, int L, int total_bits, int n_steps,
              const void* out_start, void* out_ids, int n_symbols, void* exits,
-             void* counts, void* unfrozen, void* stream) {
+             void* counts, void* unfrozen, int K, const void* table,
+             void* stream) {
   if (L <= 0) return cudaSuccess;
-  if (total_bits < 0 || n_steps < 0 || (out_ids && !out_start))
+  if (total_bits < 0 || n_steps < 0 || (out_ids && !out_start) || K < 0 ||
+      K > 14 || (K && !table))
     return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
   const int blocks = (L + kWalkThreads - 1) / kWalkThreads;
-  walk_kernel<<<blocks, kWalkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(payload), static_cast<const int32_t*>(lr2),
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
-      L, total_bits, n_steps, static_cast<const int32_t*>(out_start),
-      static_cast<int32_t*>(out_ids), n_symbols,
-      static_cast<int32_t*>(exits), static_cast<int32_t*>(counts),
+  const auto* pay = static_cast<const uint8_t*>(payload);
+  const auto* lr = static_cast<const int32_t*>(lr2);
+  const auto* tab = static_cast<const int32_t*>(table);
+  if (K == 0) {
+    walk_kernel<false><<<blocks, kWalkThreads, 0, s>>>(
+        pay, lr, nullptr, 0, static_cast<const int32_t*>(starts),
+        static_cast<const int32_t*>(ends), L, total_bits, n_steps,
+        static_cast<const int32_t*>(out_start),
+        static_cast<int32_t*>(out_ids), n_symbols,
+        static_cast<int32_t*>(exits), static_cast<int32_t*>(counts),
+        static_cast<int32_t*>(unfrozen));
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(int32_t) << K;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(walk_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  walk_kernel<true><<<blocks, kWalkThreads, smem, s>>>(
+      pay, lr, tab, K, static_cast<const int32_t*>(starts),
+      static_cast<const int32_t*>(ends), L, total_bits, n_steps,
+      static_cast<const int32_t*>(out_start), static_cast<int32_t*>(out_ids),
+      n_symbols, static_cast<int32_t*>(exits), static_cast<int32_t*>(counts),
       static_cast<int32_t*>(unfrozen));
+  return cudaGetLastError();
+}
+
+// The root table of D2 on `stream`: lr2 int32 [2 * nodes] -> table int32
+// [2^K], 1 <= K <= 14. The caller checks nodes < 2^26, so that v * 32 + n
+// fits.
+int huf_root_table(const void* lr2, void* table, int K, void* stream) {
+  if (K < 1 || K > 14) return cudaErrorInvalidValue;
+  table_kernel<<<((1 << K) + kWalkThreads - 1) / kWalkThreads, kWalkThreads,
+                 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(lr2), static_cast<int32_t*>(table), K);
   return cudaGetLastError();
 }
 

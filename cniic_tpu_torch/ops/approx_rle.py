@@ -4,9 +4,9 @@ and the entry points of the Hilbert codec's two device routes.
 Port of ``cniic_tpu/ops/approx_rle.py``. The recurrence is the reference's
 running-average RLE (hilbertc.rs:200-285): strictly sequential within a
 stream, independent across streams. Both kernels are CUDA C++ for
-``sm_90a`` in ``csrc/approx_rle.cu`` (one thread per stream), built with
-nvcc on first use into ``_build/`` and called through plain C launchers
-with ctypes; the source note says what bounds them on the card.
+``sm_90a`` in ``csrc/approx_rle.cu``, built with nvcc on first use into
+``_build/`` and called through plain C launchers with ctypes; the source
+note says what bounds them on the card.
 
 * **K2**, ``wide_records`` (replaces ``cniic_tpu/ops/approx_rle.py::
   _wkernel``): up to 1024 streams in exact int32 arithmetic, records with
@@ -18,13 +18,19 @@ with ctypes; the source note says what bounds them on the card.
   _kernel``): the same recurrence in the TPU kernel's f32 count²-scaled
   form, records ``1<<24 | rgb``, no flag. It may differ from the f64 engine
   within ~1e-4·allow of the boundary; its parity target is the TPU kernel.
+  On the card it runs as speculative chunks of ``chunk`` positions with the
+  seams repaired on the card (three launches, ``approx_rle_batch_chunked``
+  in the source; ``approx_rle_batch_chunked_ref`` models it on the CPU), or
+  with ``chunk`` >= L one thread a stream (one launch). The records are the
+  same; ``batch_records_stats`` also reports how the seams synced.
 
 Each wrapper takes position-major tensors (``rgb`` int32 [L, S] packed
 0x00RRGGBB, ``lens`` int32 [S]) and returns ``recs`` int32 [L+1, S] (and
 K2's ``flags`` int32 [S]). It checks its inputs, launches its kernel for
 CUDA tensors (raising if the launch fails) or runs its plain version
 (``approx_rle_wide_ref``, ``approx_rle_batch_ref``) for CPU tensors, and
-never moves from one to the other. ``<wrapper>.launches`` counts launches.
+never moves from one to the other. ``<wrapper>.launches`` counts calls
+that launched (``batch_records.kernel_launches`` the kernels they launched).
 
 The entry points keep the JAX signatures and return values, with an explicit
 ``device`` in place of ``interpret``: ``approx_rle_batch`` (K3),
@@ -50,6 +56,7 @@ NAME = "approx_rle"
 WIDE = 1024              # streams per K2 call (the chunk stitcher's bound)
 MAX_WIDE_ALLOW = 64      # K2's clamp keeps decisions only up to here
 MAX_BATCH_LEN = 1 << 24  # K3's f32 positions are exact up to here
+CHUNK = 128              # positions one K3 walker speculates (PERF.md)
 RUN_CAP = 255
 ICL = 16384
 REC = 1 << 24            # a record: a run ended at the previous position
@@ -78,6 +85,9 @@ def load_library() -> ctypes.CDLL:
     lib.approx_rle_wide.restype = ci
     lib.approx_rle_batch.argtypes = [vp] * 3 + [ci] * 2 + [ctypes.c_float, vp]
     lib.approx_rle_batch.restype = ci
+    lib.approx_rle_batch_chunked.argtypes = ([vp] * 5 + [ci] * 3
+                                             + [ctypes.c_float, vp])
+    lib.approx_rle_batch_chunked.restype = ci
     lib.approx_rle_error_string.argtypes = [ci]
     lib.approx_rle_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -99,8 +109,10 @@ def _check(rgb, lens) -> None:
         raise ValueError(f"lens is on {lens.device}, rgb on {rgb.device}")
     if rgb.device.type not in ("cuda", "cpu"):
         raise ValueError(f"runs on cuda or cpu tensors, not {rgb.device}")
-    if S and (int(lens.min()) < 0 or int(lens.max()) > L):
-        raise ValueError(f"stream lengths must lie in [0, {L}]")
+    if S:
+        lo, hi = torch.stack(torch.aminmax(lens)).tolist()  # one host sync
+        if lo < 0 or hi > L:
+            raise ValueError(f"stream lengths must lie in [0, {L}]")
 
 
 def _raise_launch(lib, fn: str, rc: int, shape) -> None:
@@ -140,33 +152,96 @@ def wide_records(rgb, lens, allow: int):
 wide_records.launches = 0
 
 
-def batch_records(rgb, lens, allow: float):
-    """K3 over position-major streams: recs int32 [L+1, B]. `allow` is
-    taken as f32, as the TPU kernel takes it."""
+def _check_batch(rgb, lens, chunk) -> None:
     _check(rgb, lens)
-    L, B = rgb.shape
+    L = rgb.shape[0]
     if L > MAX_BATCH_LEN:
         raise ValueError(
             f"K3 counts positions as the TPU kernel's f32 does, exact only up"
             f" to {MAX_BATCH_LEN} pixels; got streams of {L}")
-    allow = float(np.float32(allow))
-    if rgb.device.type == "cpu":
-        return approx_rle_batch_ref(rgb, lens, allow)
+    if int(chunk) != chunk or chunk < 1:
+        raise ValueError(f"chunk must be a positive integer, got {chunk!r}")
+
+
+def _chunks(L: int, chunk: int):
+    """(chunks, bitmap words a stream) of the chunk schedule over L + 1
+    rows; one chunk is the one-walker schedule."""
+    nk = 1 if chunk >= L else -(-(L + 1) // chunk)
+    return nk, -(-nk // 32)
+
+
+def _launch_batch(rgb, lens, allow: float, chunk: int):
+    """K3 on the card: (recs, unsynced-seam bitmaps int32 [B, nw] or None,
+    positions the settle pass walked int32 [B] or None)."""
+    L, B = rgb.shape
     lib = load_library()
     dev = rgb.device
     out = torch.empty((L + 1, B), dtype=torch.int32, device=dev)
+    nk, nw = _chunks(L, chunk)
+    bits = walked = None
     with torch.cuda.device(dev):
-        rc = lib.approx_rle_batch(
-            rgb.data_ptr(), lens.data_ptr(), out.data_ptr(), B, L, allow,
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if nk == 1:
+            rc = lib.approx_rle_batch(rgb.data_ptr(), lens.data_ptr(),
+                                      out.data_ptr(), B, L, allow, stream)
+            fn, kernels = "approx_rle_batch", 1
+        else:
+            scratch = torch.empty(B * nw + 10 * B * nk, dtype=torch.int32,
+                                  device=dev)
+            walked = torch.empty(B, dtype=torch.int32, device=dev)
+            rc = lib.approx_rle_batch_chunked(
+                rgb.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), walked.data_ptr(), B, L, chunk, allow,
+                stream)
+            bits = scratch[: B * nw].view(B, nw)
+            fn, kernels = "approx_rle_batch_chunked", 3
     if rc != 0:
-        _raise_launch(lib, "approx_rle_batch", rc, rgb.shape)
+        _raise_launch(lib, fn, rc, rgb.shape)
     with _count_lock:
         batch_records.launches += 1
-    return out
+        batch_records.kernel_launches += kernels
+    return out, bits, walked
+
+
+def batch_records(rgb, lens, allow: float, chunk: int = CHUNK):
+    """K3 over position-major streams: recs int32 [L+1, B]. `allow` is
+    taken as f32, as the TPU kernel takes it. On the card, `chunk` >= L
+    walks each stream with one thread (one launch); a smaller `chunk` runs
+    the speculative chunk schedule (three launches), whose records are the
+    same. `batch_records.launches` counts calls,
+    `.kernel_launches` the kernels they launched."""
+    _check_batch(rgb, lens, chunk)
+    allow = float(np.float32(allow))
+    if rgb.device.type == "cpu":
+        return approx_rle_batch_ref(rgb, lens, allow)
+    return _launch_batch(rgb, lens, allow, int(chunk))[0]
 
 
 batch_records.launches = 0
+batch_records.kernel_launches = 0
+
+
+def batch_records_stats(rgb, lens, allow: float, chunk: int = CHUNK):
+    """`batch_records` and what its chunk schedule did: (recs, seams inside
+    the streams, seams whose repair did not sync, positions the settle pass
+    re-walked). CPU tensors run the plain model of the schedule."""
+    _check_batch(rgb, lens, chunk)
+    allow = float(np.float32(allow))
+    chunk = int(chunk)
+    L = rgb.shape[0]
+    if rgb.device.type == "cpu":
+        recs, unsynced, walked = approx_rle_batch_chunked_ref(rgb, lens, allow,
+                                                              chunk)
+        n_unsynced = int(unsynced.sum())
+    else:
+        recs, bits, walked = _launch_batch(rgb, lens, allow, chunk)
+        n_unsynced = (0 if bits is None else int(np.unpackbits(
+            bits.cpu().numpy().view(np.uint8)).sum()))
+    if _chunks(L, chunk)[0] == 1:
+        return recs, 0, 0, 0
+    seams = int(((lens.cpu().to(torch.int64) - 1).clamp_min(0)
+                 // chunk).sum())
+    return recs, seams, n_unsynced, int(walked.to(torch.int64).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -229,49 +304,180 @@ def approx_rle_wide_ref(rgb, lens, allow: int):
     return out, flags.to(torch.int32)
 
 
-def approx_rle_batch_ref(rgb, lens, allow: float):
-    """The plain PyTorch version of K3 (any device).
+def _pack_avg(sums, n):
+    inv = torch.reciprocal(n.clamp_min(1.0))
+    return REC | _pack3((sums * inv + 0.5).to(torch.int32))
+
+
+def _batch_step(s, c, pend, x, pos, lens, allow_t):
+    """One K3 step on any lanes: sums s [3, *lanes] and counts c [*lanes]
+    (f32), pend int32, pixels x [3, *lanes] (f32), positions and lengths
+    broadcast to the lanes. Returns (row, s, c, pend).
 
     The distance sum is formed as fma(t2, t2, fma(t0, t0, t1 * t1)) in f32,
     the TPU kernel's form under XLA: each step is taken exactly in float64
     (the terms are integers below 2^33, so every f64 sum and product is
     exact) and rounded once to float32, which is what a fused multiply-add
     does."""
+    f32, f64 = torch.float32, torch.float64
+    active = lens > pos
+    fresh = c == 0
+    t = (s - c * x).to(f64)
+    sq = t * t
+    dist2 = (sq[0] + sq[1].to(f32).to(f64)).to(f32).to(f64)
+    dist2 = (sq[2] + dist2).to(f32)
+    ac = allow_t * c
+    accept = ~fresh & (dist2 <= ac * ac)
+    row = torch.where(active & ~fresh & ~accept, _pack_avg(s, c), pend)
+    ns = torch.where(accept, s + x, x)
+    nc = torch.where(accept, c + 1, 1.0)
+    capped = nc >= RUN_CAP
+    close = active & (capped | (lens - 1 <= pos))
+    pend = torch.where(close, _pack_avg(ns, nc), 0)
+    keep = active & ~close
+    return (row, torch.where(keep, ns, 0.0), torch.where(keep, nc, 0.0),
+            pend)
+
+
+def approx_rle_batch_ref(rgb, lens, allow: float):
+    """The plain PyTorch version of K3 (any device): every stream from
+    position 0 to L in one loop."""
     L, B = rgb.shape
     dev = rgb.device
-    f32, f64 = torch.float32, torch.float64
-    x_all = _channels(rgb).to(f32)
-    allow_t = torch.tensor(allow, dtype=f32, device=dev)
-    zero3 = torch.zeros((3, B), dtype=f32, device=dev)
-    zero = torch.zeros((B,), dtype=f32, device=dev)
+    x_all = _channels(rgb).to(torch.float32)
+    allow_t = torch.tensor(allow, dtype=torch.float32, device=dev)
+    zero3 = torch.zeros((3, B), dtype=torch.float32, device=dev)
     out = torch.zeros((L + 1, B), dtype=torch.int32, device=dev)
-    s, c = zero3, zero
+    s, c = zero3, torch.zeros((B,), dtype=torch.float32, device=dev)
     pend = torch.zeros((B,), dtype=torch.int32, device=dev)
-
-    def pack_avg(sums, n):
-        inv = torch.reciprocal(n.clamp_min(1.0))
-        return REC | _pack3((sums * inv + 0.5).to(torch.int32))
-
     for pos in range(L + 1):
         x = x_all[pos] if pos < L else zero3
-        active = lens > pos
-        fresh = c == 0
-        t = (s - c * x).to(f64)
-        sq = t * t
-        dist2 = (sq[0] + sq[1].to(f32).to(f64)).to(f32).to(f64)
-        dist2 = (sq[2] + dist2).to(f32)
-        ac = allow_t * c
-        accept = ~fresh & (dist2 <= ac * ac)
-        out[pos] = torch.where(active & ~fresh & ~accept, pack_avg(s, c), pend)
-        ns = torch.where(accept, s + x, x)
-        nc = torch.where(accept, c + 1, 1.0)
-        capped = nc >= RUN_CAP
-        close = active & (capped | (lens - 1 <= pos))
-        pend = torch.where(close, pack_avg(ns, nc), 0)
-        keep = active & ~close
-        s = torch.where(keep, ns, 0.0)
-        c = torch.where(keep, nc, 0.0)
+        out[pos], s, c, pend = _batch_step(s, c, pend, x, pos, lens, allow_t)
     return out
+
+
+def approx_rle_batch_chunked_ref(rgb, lens, allow: float, chunk: int):
+    """A plain model of K3's chunk schedule (`approx_rle_batch_chunked` in
+    csrc/approx_rle.cu), for the tests and CPU rehearsals: its three passes
+    with the kernels' sync rules, vectorised over chunks and streams.
+    Returns (recs int32 [L+1, B], unsynced bool [B, nk]: the seams whose
+    repair did not sync, walked int64 [B]: positions the settle pass
+    re-walked). With one chunk (`chunk` >= L) it is the one-walker
+    schedule."""
+    L, B = rgb.shape
+    dev = rgb.device
+    nk, _ = _chunks(L, chunk)
+    i64, f32 = torch.int64, torch.float32
+    if nk == 1:
+        return (approx_rle_batch_ref(rgb, lens, allow),
+                torch.zeros((B, 1), dtype=torch.bool, device=dev),
+                torch.zeros(B, dtype=i64, device=dev))
+    lens = lens.to(i64)
+    x_all = torch.cat([_channels(rgb).to(f32),
+                       torch.zeros((1, 3, B), dtype=f32, device=dev)])
+    allow_t = torch.tensor(allow, dtype=f32, device=dev)
+    out = torch.zeros((L + 1, B), dtype=torch.int32, device=dev)
+    p0 = torch.arange(nk, dtype=i64, device=dev) * chunk
+
+    def fresh(n):
+        return (torch.zeros((3, n, B), dtype=f32, device=dev),
+                torch.zeros((n, B), dtype=f32, device=dev),
+                torch.zeros((n, B), dtype=torch.int32, device=dev))
+
+    # pass 1: each (chunk, stream) from a fresh state, the true lengths
+    s, c, pend = fresh(nk)
+    for t in range(chunk):
+        pos = p0 + t
+        live = pos <= L
+        pc = pos.clamp(max=L)
+        x = x_all[pc].permute(1, 0, 2)
+        row, ns, nc, npend = _batch_step(s, c, pend, x, pos[:, None], lens,
+                                         allow_t)
+        out[pos[live]] = row[live]
+        s = torch.where(live[:, None], ns, s)
+        c, pend = torch.where(live[:, None], nc, c), torch.where(
+            live[:, None], npend, pend)
+    spec = (s, c, pend)
+
+    # pass 2: seam k re-walks chunk k from chunk k-1's exit until both walks
+    # start a run at one position (or are past the stream's end)
+    s, c, pend = spec[0][:, :-1], spec[1][:-1], spec[2][:-1]
+    done = torch.zeros((nk - 1, B), dtype=torch.bool, device=dev)
+    for t in range(chunk):
+        pos = p0[1:] + t
+        live = pos <= L
+        pc = pos.clamp(max=L)
+        act = ~done & live[:, None]
+        old = out[pc]
+        x = x_all[pc].permute(1, 0, 2)
+        row, ns, nc, npend = _batch_step(s, c, pend, x, pos[:, None], lens,
+                                         allow_t)
+        out[pos[live]] = torch.where(act, row, old)[live]
+        sync = act & ((pos[:, None] >= lens) | ((row != 0) & (
+            (old != 0) | (t == 0))))
+        s = torch.where(act, ns, s)
+        c, pend = torch.where(act, nc, c), torch.where(act, npend, pend)
+        done |= sync
+    rep = (s, c, pend)
+    unsynced = torch.cat([torch.zeros((1, B), dtype=torch.bool, device=dev),
+                          ~done]).t().contiguous()
+
+    # pass 3: per stream, the true state across the seams; a stream does one
+    # action an iteration (jump to the next unsynced seam, compare, or one
+    # position of a re-walk)
+    seam = torch.arange(nk, dtype=i64, device=dev)
+    nxt = torch.where(unsynced, seam, nk).flip(1).cummin(1).values.flip(1)
+    nxt = torch.cat([nxt, torch.full((B, 1), nk, dtype=i64, device=dev)], 1)
+    cols = torch.arange(B, device=dev)
+    s, c, pend = spec[0][:, 0].clone(), spec[1][0].clone(), spec[2][0].clone()
+    k = torch.ones(B, dtype=i64, device=dev)
+    eq = torch.ones(B, dtype=torch.bool, device=dev)
+    walking = torch.zeros(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    pos = torch.zeros(B, dtype=i64, device=dev)
+    walked = torch.zeros(B, dtype=i64, device=dev)
+    while True:
+        done |= ~eq & ~walking & (k >= nk)
+        if bool(done.all()):
+            break
+        jump = ~done & eq
+        comp = ~done & ~eq & ~walking
+        wk = ~done & walking
+        # jump: synced seams pass the truth on; an unsynced one's repair
+        # exit is the truth
+        kk = nxt[cols, k.clamp(max=nk)]
+        done |= jump & (kk >= nk)
+        go = jump & (kk < nk)
+        ri = (kk - 1).clamp(0, nk - 2)  # rep holds seams 1..nk-1
+        s = torch.where(go, rep[0][:, ri, cols], s)
+        c = torch.where(go, rep[1][ri, cols], c)
+        pend = torch.where(go, rep[2][ri, cols], pend)
+        k = torch.where(go, kk + 1, k)
+        eq = eq & ~go
+        # compare with the state seam k's repair started from
+        kp = (k - 1).clamp(0, nk - 1)
+        same = ((s == spec[0][:, kp, cols]).all(0) & (c == spec[1][kp, cols])
+                & (pend == spec[2][kp, cols]))
+        eq = eq | (comp & same)
+        start = comp & ~same
+        walking = walking | start
+        pos = torch.where(start, k * chunk, pos)
+        # one position of a re-walk against the rows there
+        pc = pos.clamp(max=L)
+        old = out[pc, cols]
+        row, ns, nc, npend = _batch_step(s, c, pend, x_all[pc, :, cols].t(),
+                                         pos, lens, allow_t)
+        out[pc[wk], cols[wk]] = row[wk]
+        walked += wk.to(i64)
+        s = torch.where(wk, ns, s)
+        c, pend = torch.where(wk, nc, c), torch.where(wk, npend, pend)
+        sync = wk & ((pos >= lens) | ((row != 0) & (old != 0)))
+        end = wk & ~sync & (pos + 1 >= torch.clamp((k + 1) * chunk, max=L + 1))
+        eq = eq | sync
+        walking = walking & ~sync & ~end
+        k = torch.where(end, k + 1, k)
+        pos = torch.where(wk & ~sync & ~end, pos + 1, pos)
+    return out, unsynced, walked
 
 
 # ---------------------------------------------------------------------------

@@ -55,8 +55,11 @@ def load_library() -> ctypes.CDLL:
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.huf_pack.argtypes = [vp] * 6 + [ci, i64, ci, i64, vp]
     lib.huf_pack.restype = ci
-    lib.huf_walk.argtypes = [vp] * 4 + [ci] * 3 + [vp, vp, ci] + [vp] * 4
+    lib.huf_walk.argtypes = ([vp] * 4 + [ci] * 3 + [vp, vp, ci] + [vp] * 3
+                             + [ci, vp, vp])
     lib.huf_walk.restype = ci
+    lib.huf_root_table.argtypes = [vp, vp, ci, vp]
+    lib.huf_root_table.restype = ci
     lib.huffman_dev_error_string.argtypes = [ci]
     lib.huffman_dev_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -24,7 +24,14 @@ a code cut by the end of the payload decodes nothing.
 ``walk_kernel``): it checks its inputs and launches the kernel for CUDA
 tensors, raising if the launch fails, or runs the plain version
 ``walk_ref`` (JAX's lockstep `_walk_body` as a loop of torch ops) for CPU
-tensors. ``walk.launches`` counts launches.
+tensors. ``K`` (default TABLE_BITS) is the root table's width: with K >= 1
+the walk reads a 2^K-entry table of the trie's first K levels (``table``,
+or one it builds first; ``root_table`` on the card, ``table_kernel``, plain
+version ``root_table_ref``) and takes one
+lookup where it would take up to K bit steps from the root (plain model
+``walk_table_model``); K = 0 walks one bit a step. Every K gives the same
+outputs. ``root_table`` is the table's wrapper; ``walk.launches`` and
+``root_table.launches`` count launches.
 
 ``decode_payload_device`` keeps JAX's fixed step budget (_STEPS) and
 returns None, so that the caller uses the host decoder, in exactly JAX's
@@ -48,6 +55,12 @@ _STEPS = CHUNK_BYTES * 8 + E
 # bit positions are int32 on the device: payloads of >= 2^31 bits (256 MB)
 # go to the host decoder instead of wrapping chunk offsets
 _MAX_PAYLOAD_BYTES = 1 << 28
+# the root table's width on the card (PERF.md), and the widest the kernel
+# takes: 2^14 int32 are 64 KB of shared memory a block
+TABLE_BITS = 14
+# a table entry packs a node id as v * 32 + bits; alphabets stay under 2^25
+# symbols, so tries under 2^26 nodes
+_MAX_TABLE_NODES = 1 << 26
 
 declines = 0
 
@@ -84,32 +97,51 @@ def _check(payload, lr2, starts, ends, total_bits, out_start, n_symbols):
 
 
 def walk(payload, lr2, starts, ends, total_bits: int, out_start=None,
-         n_symbols: int = 0, n_steps: int = _STEPS):
+         n_symbols: int = 0, n_steps: int = _STEPS, K: int = TABLE_BITS,
+         table=None):
     """D2 over lanes starting at bit `starts` and stopping at `ends`.
 
     Returns (exits int32 [L] = exit bit - end, counts int32 [L], frozen:
     bool, ids int32 [n_symbols] or None). With `out_start` (pass 2) each
     lane's k-th symbol goes to ids[out_start + k], dropped at or past
-    n_symbols."""
+    n_symbols. `K` in [0, TABLE_BITS]: the root table's width on the card;
+    `table`, `root_table(lr2, K)` built once for several walks over one
+    lr2, or None to build it here."""
     _check(payload, lr2, starts, ends, total_bits, out_start, n_symbols)
+    if int(K) != K or not 0 <= K <= TABLE_BITS:
+        raise ValueError(f"K must be an integer in [0, {TABLE_BITS}], "
+                         f"got {K!r}")
+    if table is not None and (
+            not K or table.dtype != torch.int32
+            or tuple(table.shape) != (1 << int(K),)
+            or table.device != payload.device):
+        raise ValueError(f"table must be int32 [2^K] on {payload.device} "
+                         f"with K >= 1, got {table.dtype} "
+                         f"{tuple(table.shape)} on {table.device}, K = {K}")
     if payload.device.type == "cpu":
         return walk_ref(payload, lr2, starts, ends, total_bits, out_start,
                         n_symbols, n_steps)
     lib = load_library()
     dev = payload.device
+    K = int(K)
     L = starts.numel()
     exits = torch.empty(L, dtype=torch.int32, device=dev)
     counts = torch.empty(L, dtype=torch.int32, device=dev)
     unfrozen = torch.zeros(1, dtype=torch.int32, device=dev)
     ids = (torch.zeros(n_symbols, dtype=torch.int32, device=dev)
            if out_start is not None else None)
+    if K and table is None:
+        table = root_table(lr2, K)
+    if K and payload.data_ptr() % 4:
+        payload = payload.clone()  # the table walk reads aligned words
     with torch.cuda.device(dev):
         rc = lib.huf_walk(
             payload.data_ptr(), lr2.data_ptr(), starts.data_ptr(),
             ends.data_ptr(), L, total_bits, n_steps,
             None if out_start is None else out_start.data_ptr(),
             None if ids is None else ids.data_ptr(), n_symbols,
-            exits.data_ptr(), counts.data_ptr(), unfrozen.data_ptr(),
+            exits.data_ptr(), counts.data_ptr(), unfrozen.data_ptr(), K,
+            None if table is None else table.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise_launch(lib, "huf_walk", rc, f"{L} lanes")
@@ -118,6 +150,39 @@ def walk(payload, lr2, starts, ends, total_bits: int, out_start=None,
 
 
 walk.launches = 0
+
+
+def root_table(lr2, K: int):
+    """The root table of D2 on the card (`table_kernel`): int32 [2^K] for a
+    CUDA lr2 of fewer than 2^26 nodes, 1 <= K <= TABLE_BITS; the plain version
+    `root_table_ref` for a CPU one. `root_table.launches` counts launches."""
+    if lr2.dtype != torch.int32 or lr2.dim() != 1 or lr2.numel() % 2:
+        raise ValueError("lr2 must be int32 [2 * nodes]")
+    if not lr2.is_contiguous():
+        raise ValueError("lr2 must be contiguous")
+    if int(K) != K or not 1 <= K <= TABLE_BITS:
+        raise ValueError(f"K must be an integer in [1, {TABLE_BITS}], "
+                         f"got {K!r}")
+    if lr2.numel() // 2 >= _MAX_TABLE_NODES:
+        raise ValueError(f"a root table holds node ids below "
+                         f"{_MAX_TABLE_NODES}")
+    if lr2.device.type == "cpu":
+        return root_table_ref(lr2, int(K))
+    if lr2.device.type != "cuda":
+        raise ValueError(f"runs on cuda or cpu tensors, not {lr2.device}")
+    lib = load_library()
+    table = torch.empty(1 << int(K), dtype=torch.int32, device=lr2.device)
+    with torch.cuda.device(lr2.device):
+        rc = lib.huf_root_table(lr2.data_ptr(), table.data_ptr(), int(K),
+                                torch.cuda.current_stream(lr2.device)
+                                .cuda_stream)
+    if rc != 0:
+        raise_launch(lib, "huf_root_table", rc, f"K = {K}")
+    count_launch(root_table)
+    return table
+
+
+root_table.launches = 0
 
 
 def walk_ref(payload, lr2, starts, ends, total_bits: int, out_start=None,
@@ -155,6 +220,85 @@ def walk_ref(payload, lr2, starts, ends, total_bits: int, out_start=None,
         node = torch.where(act, torch.where(leaf, 0, v), node)
         cnt = cnt + emit.long()
         bitpos = bitpos + act.long()
+    return ((bitpos - ends).to(torch.int32), cnt.to(torch.int32),
+            bool(frozen_now().all()), ids)
+
+
+def root_table_ref(lr2, K: int):
+    """The plain version of the card's root table (`table_kernel`): entry e
+    of int32 [2^K] is the walk of e's K bits (MSB first) from the root, as
+    v * 32 + n: back at the root after n <= K bits (v < 0 through leaf
+    -v-1, v == 0 through a missing child), or at node v > 0 after K."""
+    lr = lr2.long()
+    e = torch.arange(1 << K, dtype=torch.int64, device=lr2.device)
+    node = torch.zeros_like(e)
+    out = torch.zeros_like(e)
+    done = torch.zeros_like(e, dtype=torch.bool)
+    for i in range(K):
+        v = lr[2 * node + ((e >> (K - 1 - i)) & 1)]
+        stop = ~done & (v <= 0)
+        out = torch.where(stop, v * 32 + i + 1, out)
+        done |= stop
+        node = torch.where(done, 0, v)
+    return torch.where(done, out, node * 32 + K).to(torch.int32)
+
+
+def walk_table_model(payload, lr2, starts, ends, total_bits: int,
+                     out_start=None, n_symbols: int = 0,
+                     n_steps: int = _STEPS, K: int = TABLE_BITS):
+    """A plain model of the card's table walk (`walk_kernel` with K >= 1),
+    for the tests: lanes in lockstep, each taking a round either one lookup
+    in `root_table_ref` (at the root, with K payload bits and K steps of the
+    budget left) or one bit step. Returns what `walk_ref` returns; K = 0 is
+    `walk_ref`."""
+    if K == 0:
+        return walk_ref(payload, lr2, starts, ends, total_bits, out_start,
+                        n_symbols, n_steps)
+    table = root_table_ref(lr2, K).long()
+    pay = payload.long()
+    lr = lr2.long()
+    ends = ends.long()
+    node = torch.zeros_like(ends)
+    bitpos = starts.long()
+    cnt = torch.zeros_like(ends)
+    steps = torch.zeros_like(ends)
+    ids = (torch.zeros(n_symbols, dtype=torch.int32, device=payload.device)
+           if out_start is not None else None)
+    first = out_start.long() if out_start is not None else None
+    n_bytes = (total_bits + 7) // 8
+
+    def bits_at(pos, need):
+        """The `need` <= 14 bits at `pos`, from the 3 bytes that hold them;
+        bytes past the payload read as 0."""
+        word = torch.zeros_like(pos)
+        for i in range(3):
+            at = (pos >> 3) + i
+            byte = pay[at.clamp(0, max(payload.numel() - 1, 0))]
+            word = (word << 8) | torch.where(at < n_bytes, byte, 0)
+        return (word >> (24 - (pos & 7) - need)) & ((1 << need) - 1)
+
+    def frozen_now():
+        return ((node == 0) & (bitpos >= ends)) | (bitpos >= total_bits)
+
+    while True:
+        act = ~frozen_now() & (steps < n_steps)
+        if not bool(act.any()):
+            break
+        use = (act & (node == 0) & (bitpos + K <= total_bits)
+               & (steps + K <= n_steps))
+        e = table[bits_at(bitpos, K)]
+        v = torch.where(use, e >> 5, lr[2 * node + bits_at(bitpos, 1)])
+        n = torch.where(use, e & 31, 1)
+        leaf = v < 0
+        emit = leaf & act
+        if ids is not None:
+            tgt = first + cnt
+            keep = emit & (tgt < n_symbols)
+            ids[tgt[keep]] = (-v[keep] - 1).to(torch.int32)
+        node = torch.where(act, torch.where(leaf, 0, v), node)
+        cnt = cnt + emit.long()
+        bitpos = bitpos + torch.where(act, n, 0)
+        steps = steps + torch.where(act, n, 0)
     return ((bitpos - ends).to(torch.int32), cnt.to(torch.int32),
             bool(frozen_now().all()), ids)
 
@@ -241,7 +385,9 @@ def decode_payload_device(payload, left, right, symbol, n_symbols: int,
         return _decline()
     pay, lr2, starts1, ends1, chunk, chunk_ends, total_bits = lanes(
         pay, left, right, symbol, dev)
-    exits, cnts, ok, _ = walk(pay, lr2, starts1, ends1, total_bits)
+    table = root_table(lr2, TABLE_BITS)  # one table for both passes
+    exits, cnts, ok, _ = walk(pay, lr2, starts1, ends1, total_bits,
+                              table=table)
     if not ok:
         return _decline()
     composed = compose(exits, cnts, n_symbols)
@@ -249,5 +395,6 @@ def decode_payload_device(payload, left, right, symbol, n_symbols: int,
         return _decline()
     offs, out_start = (torch.from_numpy(a).to(dev) for a in composed)
     _, _, _, ids = walk(pay, lr2, chunk + offs, chunk_ends, total_bits,
-                        out_start=out_start, n_symbols=int(n_symbols))
+                        out_start=out_start, n_symbols=int(n_symbols),
+                        table=table)
     return ids.cpu().numpy()

@@ -1,7 +1,8 @@
 """Card-only checks of the PyTorch port: K1 (packed and unpacked paths, both
-statistics branches), D3, K2, K3, D1 and D2 on the card against their plain
-versions, and the k-means engine and codecs, the gated Hilbert codecs and
-the gated Huffman codecs on the card against the CPU path.
+statistics branches), D3, K2, K3 (both schedules), D1 and D2 (with and
+without its root table) on the card against their plain versions, and the
+k-means engine and codecs, the gated Hilbert codecs and the gated Huffman
+codecs on the card against the CPU path.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -20,7 +21,7 @@ from cniic_tpu_torch.ops import approx_rle as trle
 from cniic_tpu_torch.ops import bitpack, hufdec
 from cniic_tpu_torch.ops import kmeans as tkm
 from cniic_tpu_torch.ops import kmeans_kernel as tkk
-from torch_rle_cases import TIE, fma_batch, make_batch
+from torch_rle_cases import TIE, fma_batch, make_batch, seam_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -273,6 +274,41 @@ def test_k3_matches_plain_version(cuda, allow):
     assert got.is_cuda and torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("chunk", [1, 2, 7, 64, 255, 256, 1024])
+def test_k3_chunk_schedule_matches_plain_version(cuda, chunk):
+    """The three-pass schedule against the plain version and against the
+    one-walker schedule (chunk >= L) on the card: the suite's batch, the
+    f32-rounding streams and the seam streams (a flat stream that never
+    syncs, an edge, a cap close at a seam, short and seam-length
+    streams)."""
+    cases = [(make_batch(np.random.default_rng(3)), 4.0),
+             (fma_batch(64, np.random.default_rng(1))[:2], 64.0),
+             (seam_batch(chunk, np.random.default_rng(9)), 2.0),
+             (seam_batch(chunk, np.random.default_rng(10)), 16.0)]
+    for (scans, lens), allow in cases:
+        rgb, ln = _rle_operands(scans, lens)
+        want = trle.approx_rle_batch_ref(rgb, ln, allow)
+        before = (trle.batch_records.launches,
+                  trle.batch_records.kernel_launches)
+        got = trle.batch_records(rgb.to(cuda), ln.to(cuda), allow,
+                                 chunk=chunk)
+        one = trle.batch_records(rgb.to(cuda), ln.to(cuda), allow,
+                                 chunk=rgb.shape[0])
+        torch.cuda.synchronize()
+        chunked = chunk < rgb.shape[0]
+        assert (trle.batch_records.launches,
+                trle.batch_records.kernel_launches) == (
+            before[0] + 2, before[1] + (3 if chunked else 1) + 1)
+        assert torch.equal(got.cpu(), want), (allow, chunk)
+        assert torch.equal(one.cpu(), want), (allow, chunk)
+    # the schedule's statistics equal the CPU model's
+    rgb, ln = _rle_operands(*seam_batch(chunk, np.random.default_rng(9)))
+    on_card = trle.batch_records_stats(rgb.to(cuda), ln.to(cuda), 2.0, chunk)
+    on_cpu = trle.batch_records_stats(rgb, ln, 2.0, chunk)
+    assert torch.equal(on_card[0].cpu(), on_cpu[0])
+    assert on_card[1:] == on_cpu[1:]
+
+
 def test_rle_wrappers_refuse_before_launch(cuda):
     rgb = torch.zeros((10, 3), dtype=torch.int32, device=cuda)
     lens = torch.full((3,), 10, dtype=torch.int32, device=cuda)
@@ -376,12 +412,52 @@ def test_d2_matches_plain_version(cuda, u, n):
     assert torch.equal(got[1].cpu(), want[1])
     assert got[2] == want[2]
     host = native.huf_decode(payload, left, right, symbol, 0, n)
+    before = (hufdec.walk.launches, hufdec.root_table.launches)
     dec = hufdec.decode_payload_device(payload, left, right, symbol, n,
                                        device="cuda")
+    # both passes read one root table
+    assert (hufdec.walk.launches, hufdec.root_table.launches) == (
+        before[0] + 2, before[1] + 1)
     np.testing.assert_array_equal(dec, host)
     np.testing.assert_array_equal(
         hufdec.decode_payload_device(payload, left, right, symbol, n,
                                      device="cpu"), host)
+
+
+@pytest.mark.parametrize("K", [0, 1, 5, 12, 14])
+def test_d2_root_table_matches_plain_version(cuda, K):
+    """Both passes at every table width against the plain version (the
+    delta-like 2-symbol alphabet, a 4096-symbol one, budgets that cut
+    codes) and the table itself against its plain version."""
+    rng = np.random.default_rng(K)
+    for u, n in ((2, 30_000), (4096, 60_000)):
+        freqs = rng.integers(1, 1000, u).astype(np.uint64)
+        payload, left, right, symbol, n = _hufdec_stream(rng, freqs, n)
+        pay_np = np.frombuffer(payload, np.uint8)
+        ops = hufdec.lanes(pay_np, left, right, symbol, torch.device("cpu"))
+        pay, lr2, s1, e1, chunk, chunk_ends, total = ops
+        card = [t.to(cuda) for t in (pay, lr2, s1, e1)]
+        if K:
+            assert torch.equal(hufdec.root_table(card[1], K).cpu(),
+                               hufdec.root_table_ref(lr2, K))
+        for n_steps in (13, hufdec._STEPS):
+            want = hufdec.walk_ref(pay, lr2, s1, e1, total, n_steps=n_steps)
+            before = (hufdec.walk.launches, hufdec.root_table.launches)
+            got = hufdec.walk(*card, total, n_steps=n_steps, K=K)
+            assert (hufdec.walk.launches, hufdec.root_table.launches) == (
+                before[0] + 1, before[1] + (1 if K else 0))
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+            assert got[2] == want[2]
+        offs, out_start = (torch.from_numpy(a) for a in
+                           hufdec.compose(want[0], want[1], n))
+        args = (pay, lr2, chunk + offs, chunk_ends, total)
+        want2 = hufdec.walk_ref(*args, out_start=out_start, n_symbols=n)
+        got2 = hufdec.walk(*[a.to(cuda) if torch.is_tensor(a) else a
+                             for a in args], out_start=out_start.to(cuda),
+                           n_symbols=n, K=K)
+        assert torch.equal(got2[3].cpu(), want2[3])
+        assert torch.equal(got2[1].cpu(), want2[1]) and got2[2] == want2[2]
 
 
 def test_d2_deep_codes_decline_like_plain_version(cuda):

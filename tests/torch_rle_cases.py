@@ -57,3 +57,27 @@ def fma_batch(allow, rng):
     for i, (_, s) in enumerate(streams):
         scans[i, : len(s)] = s
     return scans, np.array([len(s) for _, s in streams]), [c for c, _ in streams]
+
+
+def seam_batch(chunk, rng):
+    """Eight streams for K3's chunk schedule at `chunk` (taken as at most
+    256): a flat stream of 3 * 255 + 17 pixels, whose cap-closed runs start
+    at other offsets than the chunks and so never sync; a flat stream with
+    one edge; a run closed by the cap exactly at a seam; and walks of
+    lengths 0, 1, 3c, 3c - 1 and 3c + 1. Returns (scans, lens)."""
+    c = min(chunk, 256)
+    flat = np.full((3 * 255 + 17, 3), 9)
+    edge = flat.copy()
+    edge[400:] = 200
+    seam = -(-300 // c) * c  # a seam at or past position 300
+    capped = rng.integers(0, 256, (seam + 200, 3))
+    capped[seam - 255: seam] = 77  # after a random pixel: a run of 255
+    walks = [np.clip(rng.integers(0, 25, 3)
+                     + rng.integers(-2, 3, (n, 3)).cumsum(0), 0, 255)
+             for n in (0, 1, 3 * c, 3 * c - 1, 3 * c + 1)]
+    streams = [flat, edge, capped] + walks
+    L = max(len(s) for s in streams)
+    scans = np.zeros((len(streams), L, 3), np.uint8)
+    for i, s in enumerate(streams):
+        scans[i, : len(s)] = s
+    return scans, np.array([len(s) for s in streams])
