@@ -22,9 +22,14 @@ Phases:
    voronoi bound with duplicated points and centroids; (g) the unpacked
    path with global statistics, d = 2 at coordinates up to 16383, k = 4096.
    D3 on (a)'s statistics with emptied clusters (the steal), a frozen lane
-   and a plateauing lane, two steps, with max_iters free and binding. K2 on
-   the chunked Hilbert scans the chunked
-   route gives it: (a) a 1024^2 scan, 1024 chunks, allow 4; (b) the same at
+   and a plateauing lane, two steps, with max_iters free and binding. The
+   whole iteration in one launch (K1 with D3 in each lane's last block)
+   against K1's then D3's plain versions, every tensor after every step: at
+   (a), at (a) with D3's cases, at (b) over many steps, and on both
+   global-statistics branches; then its kernel alone against K1's alone and
+   K1 then D3, beside the bound of K1 and D3 together, and what an
+   iteration of the loop costs the host and the card with one launch and
+   with two. K2 on the chunked Hilbert scans the chunked route gives it: (a) a 1024^2 scan, 1024 chunks, allow 4; (b) the same at
    allow 16; (c) the 2040x1356 scan, 1024 chunks of 2702, allow 4; (d)
    crafted boundary ties at allow 2 (flags set); (e) allow 64. K3 (its
    chunk schedule and one walker a stream) on 8 streams of 16384 pixels
@@ -35,7 +40,9 @@ Phases:
    positions, both schedules in turns and the kernels alone. D1 on the
    8 Hufman id streams of the 1024^2 images in one batched launch, on one
    delta stream through the single route and on a geometric codebook with
-   63-bit codes; D2's two passes at K = 0 and the default K, and its root
+   63-bit codes, each with its one-pass schedule and with one thread a
+   symbol, both schedules timed in turns and alone, and everything the one
+   pass puts on the card by name; D2's two passes at K = 0 and the default K, and its root
    table, on a 1024^2 Hufman payload and a delta payload, and its decline
    on a deep-code stream; D1 and D2 also against the native C packer and
    decoder; D2's passes timed at both K in turns. Then each
@@ -48,12 +55,13 @@ Phases:
    counts set to 0 just before it and read just after: `runner.
    measure_all(from_spec(spec, device="cuda"), paths, batch=8)` over 8
    images of 1024^2 (bench.py's recipe, seed 2024) and one 2040x1356
-   image, written as PNGs. (i) cluster-colors(32) and voronoi(128): K1 and
-   D3 must have launched (their launches and the loop's host checks are
+   image, written as PNGs. (i) cluster-colors(32) and voronoi(128): K1 must
+   have launched once an iteration and D3 never alone (the update runs in
+   K1's last blocks; launches, iterations and the loops' host checks are
    printed per codec), the fused voronoi decode+MSE must have run, and the
    runner must not have fallen back to per-image decode; then a
    torch.profiler window over one warm `encode_batch` of each (8 images)
-   prints the device busy share and K1's and D3's shares
+   prints the device busy share, K1's share and the kernels an iteration
    (`cniic_tpu_torch.kmeans_profile.encode_window`). (ii) hilbert(rle),
    hilbert(rle(4)) and hilbert(zip) with no gate (the host C runtime), then
    hilbert(rle(4)) under CNIIC_CHUNKED_RLE=1 (K2 must have launched and the
@@ -70,8 +78,10 @@ Phases:
 5. the card against the CPU: identical streams for two 256^2 crops with the
    k-means codecs, with hilbert(rle(4)) under each of its gates and with
    hufman, delta and cluster-colors(32) under each Huffman gate (identical
-   decodes too; the CPU runs the plain versions), and the phase-4 voronoi
-   streams decoded on the CPU give the MSEs measured on the card.
+   decodes too; the CPU runs the plain versions), the phase-4 voronoi
+   streams decoded on the CPU give the MSEs measured on the card, and the
+   golden 3840x2160 image (seed 42) encodes with voronoi(128) on the card
+   to the stream whose hash the tests pin.
 
 It ends with a line holding the card's name and power limit, a JSON line
 describing each kernel of the paths, and the JSON result line. Any failure
@@ -83,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -124,6 +135,10 @@ D2_REPLACES = "cniic_tpu/ops/hufdec.py:82"
 HOST_SPECS = ("hufman", "delta", "zip(dict)", "zip(back)")
 HUF_SPECS = ("hufman", "delta", "cluster-colors(32)")
 HUF_GATES = ("CNIIC_DEVICE_BITPACK", "CNIIC_DEVICE_HUF_DECODE")
+# sha256 of the voronoi(128) stream of synth_natural(seed 42, 2160 x
+# 3840), the stream committed as tests/fixtures/voronoi128_synth4k.bin
+VORONOI_4K_SHA = ("df51eee5af16fd1a47af40fea1e8cc1112aacf3d8f8d6fe48a6dfa69911b"
+                  "a857")
 
 # the H100 SXM's published peak rates, for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -173,6 +188,38 @@ def synth_image(rng, h: int, w: int) -> np.ndarray:
         hh, ww = rng.integers(h // 8, h // 3), rng.integers(w // 8, w // 3)
         img[y0:y0 + hh, x0:x0 + ww] = rng.integers(0, 256, 3)
     img = img + rng.normal(0, 2.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def synth_natural(rng, h: int, w: int) -> np.ndarray:
+    """Natural-statistics field: 1/f^1.8 spectrum, correlated channels,
+    flat patches, mild noise (the recipe of
+    scripts/make_synth_corpus.py::synth_natural; seed 42 at 2160 x 3840 is
+    the image of the golden 4K pins)."""
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.rfftfreq(w)[None, :]
+    f = np.sqrt(fy * fy + fx * fx)
+    f[0, 0] = f[0, 1]
+    spec = 1.0 / f ** 1.8
+
+    def field():
+        ph = rng.normal(size=(h, w // 2 + 1)) + 1j * rng.normal(size=(h, w // 2 + 1))
+        x = np.fft.irfft2(ph * spec, s=(h, w))
+        lo, hi = np.percentile(x, [1, 99])
+        return np.clip((x - lo) / (hi - lo + 1e-9), 0, 1)
+
+    lum = field()
+    c1, c2 = field(), field()
+    r = np.clip(lum * 0.75 + c1 * 0.35 - 0.05, 0, 1)
+    g = np.clip(lum * 0.85 + c2 * 0.20 - 0.02, 0, 1)
+    b = np.clip(lum * 0.65 + (1 - c1) * 0.30, 0, 1)
+    img = np.stack([r, g, b], axis=-1) * 255.0
+    for _ in range(int(rng.integers(4, 9))):
+        y0, x0 = rng.integers(0, h * 3 // 4), rng.integers(0, w * 3 // 4)
+        hh, ww = rng.integers(h // 12, h // 4), rng.integers(w // 12, w // 4)
+        patch = img[y0:y0 + hh, x0:x0 + ww]
+        img[y0:y0 + hh, x0:x0 + ww] = patch.mean(axis=(0, 1))
+    img = img + rng.normal(0, 1.4, img.shape)
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
@@ -254,18 +301,22 @@ def phase_build(rehearse: bool) -> None:
         k1 = _ptxas_entries(fh.read())
     steps = [v for name, v in k1.items() if "step_update_kernel" in name]
     k1 = {name: v for name, v in k1.items() if "assign_stats_kernel" in name}
-    check(len(k1) == 32, f"ptxas reported {len(k1)} of 32 K1 kernels")
+    # 8 dimensions x statistics branch x packed x with or without the update
+    check(len(k1) == 64, f"ptxas reported {len(k1)} of 64 K1 kernels")
     check(len(steps) == 1, f"ptxas reported {len(steps)} D3 kernels")
     for name, (regs, st, ld, smem) in sorted(k1.items()):
-        m = re.search(r"ILi(\d)ELb([01])ELb([01])E", name)
-        if m and m.group(1) in ("3", "5"):  # the dimensions of the two codecs
-            print(f"  ptxas K1 d={m.group(1)} "
-                  f"{'shared' if m.group(2) == '1' else 'global'}-memory "
-                  f"stats, {'packed' if m.group(3) == '1' else 'unpacked'}: "
+        m = re.search(r"ILi(\d)ELb([01])ELb([01])ELb([01])E", name)
+        check(m is not None, f"unexpected K1 instance {name}")
+        # the main path's: shared-memory statistics, packed, d of the codecs
+        if m.group(1) in ("3", "5") and m.group(2) == m.group(3) == "1":
+            print(f"  ptxas K1 d={m.group(1)} shared-memory stats, packed, "
+                  f"{'with' if m.group(4) == '1' else 'without'} the update: "
                   f"{regs} registers, {smem} B static smem, {st} B spills")
-    print(f"  K1, all 32 instances: max {max(v[0] for v in k1.values())} "
+    print(f"  K1, all 64 instances: max {max(v[0] for v in k1.values())} "
           f"registers, max {max(v[1] for v in k1.values())} B spills; D3 "
-          f"{steps[0][0]} registers, {steps[0][1]} B spills")
+          f"alone {steps[0][0]} registers, {steps[0][1]} B spills")
+    check(bitpack.load_library().huf_pack_tile() == bitpack.TILE,
+          "bitpack.TILE is not the tile huffman_dev.cu was built with")
     with open(_build.log_path(approx_rle.NAME)) as fh:
         rle = _ptxas_entries(fh.read())
     with open(_build.log_path(bitpack.NAME)) as fh:
@@ -273,7 +324,8 @@ def phase_build(rehearse: bool) -> None:
     for label, key, count in (
             ("K2", "wide_kernel", 1), ("K3", "batch_kernel", 1),
             ("K3", "speculate_kernel", 1), ("K3", "repair_kernel", 1),
-            ("K3", "settle_kernel", 1), ("D1", "pack_kernel", 1),
+            ("K3", "settle_kernel", 1), ("D1", "pack_tiles_kernel", 2),
+            ("D1", "book_kernel", 1), ("D1", "pack_kernel", 1),
             ("D2", "walk_kernel", 2), ("D2", "table_kernel", 1)):
         found = sorted((n, v) for n, v in rle.items() if key in n)
         check(len(found) == count, f"ptxas reported {len(found)} {key} "
@@ -361,17 +413,20 @@ def bound(nbytes: int, ops: float = 0.0, peak: float = INT_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_bound(ops):
+def k1_bound(ops, with_update: bool = False):
     """K1 on these operands: each valid point of an active lane read once
     (d coordinates, w, cur) and its new id written once, the centroids read
     and the statistics written once; d multiply-adds per (point, centroid)
-    pair (2 operations each), counted at the card's fastest integer rate."""
+    pair (2 operations each), counted at the card's fastest integer rate.
+    with_update: the whole iteration, K1's bytes and D3's (`d3_bound`)."""
     ptsT, _, _, cents, n, act = ops
     _, d, _ = ptsT.shape
     k = cents.shape[1]
     points = int(torch.where(act != 0, n, 0).sum())
     lanes = int((act != 0).sum())
     nbytes = (points * (d + 3) * 4 + lanes * k * (d * 4 + (d + 1) * 8))
+    if with_update:
+        nbytes += lanes * k * (2 * (d + 1) * 8 + d * 4)
     return bound(nbytes, 2.0 * points * k * d)
 
 
@@ -401,8 +456,162 @@ def _d3_state(k1_ops, k1_out, max_iters: int):
     stall[2] = 63
     best[2] = 0  # no 2% improvement on 0 moves: lane 2 plateaus
     return [sums, k1_out[2].clone(), ptsT, n, cents.clone(), moved, best,
-            stall, act, torch.tensor([2**31 + 5, 1], **i64),
+            stall, act, torch.full((B,), 2**31 + 5, **i64),
             torch.zeros(B, **i64), 64, max_iters]
+
+
+def _fused_case(name, k1_ops, pmax, steps, dev, d3_cases=False):
+    """`steps` whole iterations (K1 with D3 in each lane's last block, one
+    launch) against K1's then D3's plain versions on the same device, every
+    tensor compared after every step. d3_cases: clusters of lane 0 that no
+    point can reach (the steal, at a large iteration), lane 1 frozen, lane 2
+    one stall short of the plateau limit, and max_iters binding at the
+    second step. Returns the max |err|."""
+    ptsT, w, cur, cents, n, act = [t.clone() for t in k1_ops]
+    B, d, _ = ptsT.shape
+    k = cents.shape[1]
+    i64 = dict(dtype=torch.int64, device=dev)
+    n64 = n.to(torch.int64)
+    moved, best = n64 + 1, n64 + 1
+    stall, it = torch.zeros(B, **i64), torch.zeros(B, **i64)
+    thresh = torch.zeros(B, **i64)
+    stall_lim, max_iters = 64, 1 << 40
+    if d3_cases:
+        # a centroid equal to the one before it loses every tie to it
+        cents[0, 1::5] = cents[0, 0:-1:5][: cents[0, 1::5].shape[0]]
+        cur[0] = torch.where(cur[0] % 5 == 1, cur[0] - 1, cur[0])
+        act[1] = 0
+        moved[1] = 0
+        stall[2] = 63
+        best[2] = 0
+        it += 2**31 + 5
+        max_iters = 2**31 + 7
+    state = [torch.zeros((B, k, d + 1), **i64),
+             torch.zeros(B, dtype=torch.int32, device=dev), moved, best, stall,
+             it, thresh]
+    want = [t.clone() for t in (cur, cents, act, *state)]
+    step = kmeans_kernel.prepare_step(ptsT, w, cur, cents, n, act, pmax,
+                                      *state, stall_lim, max_iters)
+    err = 0
+    stolen = 0
+    for _ in range(steps):
+        step()
+        w_cur, w_cents, w_act, w_sums, w_mk, *w_rest = want
+        new, sums, mk = kmeans_kernel.assign_stats_ref(ptsT, w, w_cur, w_cents,
+                                                       n, w_act)
+        keep = (w_act != 0)[:, None] & (torch.arange(
+            ptsT.shape[2], device=dev)[None, :] < n[:, None])
+        w_cur.copy_(torch.where(keep, new, w_cur))
+        stolen += int(((sums[:, :, d] == 0) & (w_act != 0)[:, None]).sum())
+        kmeans_kernel.step_update_ref(sums, mk, ptsT, n, w_cents, *w_rest[:3],
+                                      w_act, *w_rest[3:], stall_lim, max_iters)
+        err = max(err, _max_err([cur, cents, act, *state[2:6]],
+                                [w_cur, w_cents, w_act, *w_rest[:4]]),
+                  int(state[0].abs().max()), int(state[1].abs().max()))
+    print(f"  K1 + D3 in one launch ({name}) B={B} d={d} k={k}, {steps} "
+          f"steps: max |err| of cur, cents, act, moved, best, stall, it "
+          f"(statistics left zero) = {err}; it {it.tolist()}, act "
+          f"{act.tolist()}, {stolen} steals")
+    check(err == 0, f"the fused step differs from K1's and D3's plain "
+          f"versions in {name}")
+    if d3_cases:
+        check(stolen > 0, "the crafted centroids emptied no cluster")
+        check(it.tolist() == [2**31 + 7, 2**31 + 5, 2**31 + 6, 2**31 + 7]
+              and not bool(act.any()),
+              "the fused step did not stop at a binding max_iters")
+    return err
+
+
+def _loop_cost(step, iters: int, dev):
+    """(host us, wall us) an iteration of `iters` enqueued back to back: the
+    host's time to enqueue them, and the time until the card has run them."""
+    step()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    t1 = time.perf_counter()
+    _sync(dev)
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e6 / iters, (t2 - t0) * 1e6 / iters
+
+
+def _step_timings(key, k1_ops, pmax, k1_alone_ms, dev, card, sz):
+    """The whole iteration at a main-path shape, every lane kept active and
+    the state set back before each call: one launch (K1 with D3 in its last
+    blocks, the kernel the main path runs) against two (K1, then D3 alone),
+    the kernels alone by the profiler, the one launch and the two plain
+    versions by events in turns, its bound and roofline share, and what an
+    iteration of the loop costs the host and the card."""
+    ptsT, w, cur0, cents0, n, act = k1_ops
+    B, d, _ = ptsT.shape
+    k = cents0.shape[1]
+    i64 = dict(dtype=torch.int64, device=dev)
+    out = {}
+    for fused in (True, False):
+        cur, cents = cur0.clone(), cents0.clone()
+        n64 = n.to(torch.int64)
+        state = [torch.zeros((B, k, d + 1), **i64),
+                 torch.zeros(B, dtype=torch.int32, device=dev), n64 + 1,
+                 n64 + 1, torch.zeros(B, **i64), torch.zeros(B, **i64),
+                 torch.full((B,), -1, **i64)]   # thresh -1: no lane freezes
+        step = kmeans_kernel.prepare_step(
+            ptsT, w, cur, cents, n, act.clone(), pmax, *state, 1 << 40,
+            1 << 40, fused=fused)
+
+        def from_init(step=step, cur=cur, cents=cents):
+            cur.copy_(cur0)
+            cents.copy_(cents0)
+            step()
+
+        out[fused] = (step, from_init)
+    keys = {True: ("assign_stats_kernel",),
+            False: ("assign_stats_kernel", "step_update_kernel")}
+    alone = {f: _kernels_ms(out[f][1], keys[f], dev) for f in (True, False)}
+    p_state = [t.clone() for t in (cents0, act, *state[2:])]
+
+    def plain():
+        new, sums, mk = kmeans_kernel.assign_stats_ref(ptsT, w, cur0, cents0,
+                                                       n, act)
+        p_state[0].copy_(cents0)
+        kmeans_kernel.step_update_ref(sums, mk, ptsT, n, p_state[0],
+                                      *p_state[2:5], p_state[1],
+                                      *p_state[5:], 1 << 40, 1 << 40)
+
+    few = max(2, sz["iters"] // 4)
+    p1 = _time_ms(plain, few, dev, warmup=1)
+    c1 = _time_ms(out[True][1], sz["iters"], dev)
+    c2 = _time_ms(out[True][1], sz["iters"], dev)
+    p2 = _time_ms(plain, few, dev, warmup=1)
+    b_ms, b_by = k1_bound(k1_ops, with_update=True)
+    # the loop as `_drive` runs it: the state moves on from call to call
+    cost = {}
+    for f in (False, True, True, False):
+        cost.setdefault(f, []).append(_loop_cost(out[f][0], 5 * sz["iters"],
+                                                 dev))
+    one, two = cost[True], cost[False]
+    print(f"  time the iteration ({key}) on {card}: kernels alone (profiler, "
+          f"from the init state) one launch {alone[True] * 1e3:.2f} us, K1 "
+          f"then D3 {alone[False] * 1e3:.2f} us, K1 without the update "
+          f"{k1_alone_ms * 1e3:.2f} us: the update in K1's last blocks adds "
+          f"{(alone[True] - k1_alone_ms) * 1e3:.2f} us; a copy of cur and "
+          f"cents then the one launch {c1 * 1e3:.1f} / {c2 * 1e3:.1f} us by "
+          f"events, K1's then D3's plain versions {p1 * 1e3:.1f} / "
+          f"{p2 * 1e3:.1f} us (plain, kernel, kernel, plain); bound of K1 "
+          f"and D3 {b_ms * 1e3:.2f} us ({b_by}), roofline share of the one "
+          f"launch alone {b_ms / alone[True]:.4f}; the loop, host / "
+          f"wall us an iteration (two, one, one, two launches): "
+          f"{two[0][0]:.1f} / {two[0][1]:.1f}, {one[0][0]:.1f} / "
+          f"{one[0][1]:.1f}, {one[1][0]:.1f} / {one[1][1]:.1f}, "
+          f"{two[1][0]:.1f} / {two[1][1]:.1f}")
+    return {"fused_alone_ms": alone[True], "split_alone_ms": alone[False],
+            "fused_tail_ms": alone[True] - k1_alone_ms,
+            "fused_call_ms": (c1 + c2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "loop_host_us": sum(c[0] for c in one) / 2,
+            "loop_wall_us": sum(c[1] for c in one) / 2,
+            "loop_host_us_two_launches": sum(c[0] for c in two) / 2,
+            "loop_wall_us_two_launches": sum(c[1] for c in two) / 2}
 
 
 def _device_ms(fn, key: str, dev) -> float:
@@ -469,12 +678,30 @@ def phase_kernel(imgs, dev, card, sz):
             d3_err = max(d3_err, err)
             print(f"  D3 (a) max_iters {max_iters}, step {step + 1}: max "
                   f"|err| of sums, moved_k, cents, moved, best, stall, act, "
-                  f"state = {err}; state {got[9].tolist()}, act "
+                  f"it = {err}; it {got[9].tolist()}, act "
                   f"{got[8].tolist()}, stall {got[7].tolist()}")
             check(err == 0, f"D3 differs from its plain version (max_iters "
                   f"{max_iters}, step {step + 1})")
-    check(int(got[9][0]) == 2**31 + 6 and not bool(got[8].any()),
+    check(int(got[9].max()) == 2**31 + 6 and not bool(got[8].any()),
           "D3 did not stop at a binding max_iters")
+
+    print("phase 3 (cont.): the whole iteration in one launch against K1's "
+          "then D3's plain versions (exact equality)")
+    b_ops, b_pmax = cases["b cluster-colors"]
+    e_ops, e_pmax = cases["e large k"]
+    g_ops, g_pmax = cases["g unpacked, d=2 at 16383"]
+    many = 10 * sz["iters"]
+    fused_err = max(
+        _fused_case("a voronoi", a_ops, cases["a voronoi"][1], sz["iters"],
+                    dev),
+        _fused_case("a voronoi, D3's cases", a_ops, cases["a voronoi"][1], 3,
+                    dev, d3_cases=True),
+        _fused_case("b cluster-colors", b_ops, b_pmax, many, dev),
+        _fused_case("e large k, global statistics", e_ops, e_pmax,
+                    sz["iters"], dev),
+        _fused_case("g unpacked, global statistics", g_ops, g_pmax, many,
+                    dev))
+    d3_err = max(d3_err, fused_err)
 
     timings = {}
     for key, name in (("a", "a voronoi"), ("b", "b cluster-colors")):
@@ -494,7 +721,8 @@ def phase_kernel(imgs, dev, card, sz):
         b_ms, b_by = k1_bound(ops)
         dev_ms = _device_ms(kernel, "assign_stats_kernel", dev)
         timings[key] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by, dev_ms)
-        print(f"  time K1 ({key}) on {card}: kernel {k1 * 1e3:.1f} / "
+        print(f"  time K1 without the update ({key}) on {card}: kernel "
+              f"{k1 * 1e3:.1f} / "
               f"{k2 * 1e3:.1f} us per launch, plain version {p1 * 1e3:.1f} / "
               f"{p2 * 1e3:.1f} us (plain, kernel, kernel, plain; "
               f"{sz['iters']} launches each); kernel alone (profiler) "
@@ -520,6 +748,9 @@ def phase_kernel(imgs, dev, card, sz):
     # the events see the host's enqueue rate (the wrapper's checks take
     # longer than the kernel), so D3's time is the kernel's own
     timings["D3"] = (dev_ms, (p1 + p2) / 2, b_ms, b_by, (k1 + k2) / 2)
+    for key, name in (("a", "a voronoi"), ("b", "b cluster-colors")):
+        timings[f"step {key}"] = _step_timings(
+            key, *cases[name], timings[key][4], dev, card, sz)
     print(f"  time D3 (a) on {card}: kernel alone (profiler) "
           f"{dev_ms * 1e3:.2f} us; a copy of the statistics then a call: "
           f"kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us, plain version "
@@ -840,8 +1071,9 @@ def _d1_case(name, ids_list, freqs_list, dev):
     _sync(dev)
     t_ref = time.perf_counter() - t0
     got = bitpack.pack_words(*ops, n_words)
+    old = bitpack.pack_words(*ops, n_words, one_pass=False)
     _sync(dev)
-    err = _max_err([got], [want])
+    err = _max_err([got, old], [want, want])
     words = got.cpu().numpy()
     for i, (sym, book) in enumerate(zip(ids_list, books)):
         check(bitpack._words_to_bytes(words[i].view(np.uint32), totals[i])
@@ -849,8 +1081,9 @@ def _d1_case(name, ids_list, freqs_list, dev):
               f"D1 ({name}) stream {i}: bytes differ from the C packer")
     print(f"  D1 ({name}) {ids.shape[0]} x {ids.shape[1]} ids, alphabets "
           f"up to {codes.shape[1] - 1}, codes up to {int(lens.max())} bits, "
-          f"{sum(totals)} payload bits: max |err| {err}, bytes equal the C "
-          f"packer's (plain version {t_ref:.3f} s)")
+          f"{sum(totals)} payload bits, one pass and one thread a symbol: "
+          f"max |err| {err}, bytes equal the C packer's (plain version "
+          f"{t_ref:.3f} s)")
     check(err == 0, f"D1 differs from its plain version in {name}")
     # about 20 integer operations a symbol
     return err, ops, n_words, bound(_nbytes(*ops, got), 20.0 * ops[0].numel())
@@ -947,6 +1180,28 @@ def _kernels_ms(fn, keys, dev, calls: int = 10) -> float:
     return ms
 
 
+def _device_split(fn, dev, calls: int = 10) -> dict:
+    """Device ms a call of everything `fn` puts on the card (kernels,
+    memsets, copies), by name, from torch.profiler; {} in a rehearsal."""
+    if dev.type != "cuda":
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for start, end, name in kmeans_profile._device_intervals(prof):
+        name = re.sub(r"^void ", "", name.replace("(anonymous namespace)::",
+                                                  ""))
+        name = re.split(r"[<(]", name)[0].split("::")[-1]
+        out[name] = out.get(name, 0.0) + (end - start) / 1e3 / calls
+    return out
+
+
 def phase_huffman_kernels(imgs, dev, card, sz):
     print("phase 3 (cont.): D1 and D2 against their plain versions (exact "
           "equality)")
@@ -983,8 +1238,29 @@ def phase_huffman_kernels(imgs, dev, card, sz):
     print(f"  D2 (c deep codes): the card and the CPU plain version both "
           f"{'decline' if declined else 'decode'}")
 
+    one_pass = lambda: bitpack.pack_words(*d1_ops, n_words)  # noqa: E731
+    per_symbol = lambda: bitpack.pack_words(  # noqa: E731
+        *d1_ops, n_words, one_pass=False)
+    (o1, o2), (n1, n2) = _pair_turns(per_symbol, one_pass, sz["iters"], dev)
+    d1 = {"ms_per_symbol": (o1 + o2) / 2,
+          "alone_ms": _kernels_ms(one_pass, ("pack_tiles_kernel",
+                                             "book_kernel"), dev),
+          "alone_ms_per_symbol": _kernels_ms(per_symbol, ("pack_kernel",),
+                                             dev),
+          "device_split_ms": _device_split(one_pass, dev)}
+    print(f"  time D1 schedules ({d1_ops[0].shape[0]} x {d1_ops[0].shape[1]} "
+          f"ids) on {card}: one thread a symbol {o1:.4f} / {o2:.4f} ms, one "
+          f"pass {n1:.4f} / {n2:.4f} ms a call by events (old, new, new, "
+          f"old); kernels alone (profiler) {d1['alone_ms_per_symbol']:.4f} "
+          f"and {d1['alone_ms']:.4f} ms, "
+          f"{d1['alone_ms_per_symbol'] / d1['alone_ms']:.2f}x; bound "
+          f"{d1_bound[0] * 1e3:.2f} us, roofline share of the one pass alone "
+          f"{d1_bound[0] / d1['alone_ms']:.4f}")
+    print("  D1, one pass: everything a call puts on the card (profiler, "
+          "ms): " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+              d1["device_split_ms"].items(), key=lambda kv: -kv[1])))
     timings = {
-        "D1": _time_turns(lambda: bitpack.pack_words(*d1_ops, n_words),
+        "D1": _time_turns(one_pass,
                           lambda: bitpack.pack_words_ref(*d1_ops, n_words),
                           sz["iters"], dev),
         "D2": _time_turns(lambda: hufdec.walk(*d2_ops),
@@ -1028,7 +1304,7 @@ def phase_huffman_kernels(imgs, dev, card, sz):
           f"decode 1 stream C {t_cdec:.2f} ms, decode_payload_device (D2 "
           f"route) {t_ddec:.2f} ms")
     return {"D1": (d1_err, timings["D1"]), "D2": (d2_err, timings["D2"]),
-            "D1 check ms": t_check, "D2 passes": d2,
+            "D1 check ms": t_check, "D1 schedules": d1, "D2 passes": d2,
             "routes ms": {"pack_c_8": t_cpack, "pack_d1_8": t_dpack,
                           "decode_c_1": t_cdec, "decode_d2_1": t_ddec}}
 
@@ -1151,29 +1427,43 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
     runs = {}
     k1, d3 = kmeans_kernel.assign_stats, kmeans_kernel.step_update
     k1.launches = d3.launches = 0
+    every = km._CHECK_EVERY
     for spec in SPECS:
         before = (k1.launches, d3.launches)
-        runs[spec] = _measured(spec, paths, dev, card, out_dir)
-        n_d3 = d3.launches - before[1]
-        print(f"  {spec}: K1 launches {k1.launches - before[0]}, D3 "
-              f"launches {n_d3}, host checks of the loop "
-              f"{n_d3 // km._CHECK_EVERY} (one every {km._CHECK_EVERY} "
-              "iterations)")
+        with kmeans_profile.IterLog() as log:
+            runs[spec] = _measured(spec, paths, dev, card, out_dir)
+        n_k1, n_d3 = k1.launches - before[0], d3.launches - before[1]
+        print(f"  {spec}: {log.loops} k-means loops of {log.iters} "
+              f"iterations in all, K1 launches {n_k1} (one an iteration, "
+              f"enqueued {every} at a time), D3 launches {n_d3} (the update "
+              f"runs in K1's last blocks), host checks of the loops "
+              f"{n_k1 // every}")
+        if dev.type == "cuda":
+            check(n_d3 == 0, f"{spec}: D3 launched alone on the default path")
+            check(n_k1 % every == 0
+                  and log.iters <= n_k1 < log.iters + every * log.loops,
+                  f"{spec}: {n_k1} K1 launches for {log.iters} iterations in "
+                  f"{log.loops} loops")
+    # D3 is on the path inside K1's launches, never as a launch of its own
     launches = {"K1": k1.launches, "D3": d3.launches}
-    print(f"  K1 launches over the k-means path: {launches['K1']}, D3 "
-          f"launches {launches['D3']}")
+    print(f"  K1 launches over the k-means path: {launches['K1']} (D3 in "
+          f"each), D3 launches of its own {launches['D3']}")
+    windows = {}
     if dev.type == "cuda":
         for spec in SPECS:
             win = kmeans_profile.encode_window(from_spec(spec, device="cuda"),
                                                imgs[:8])
+            windows[spec] = win
             print(f"  profiler, one warm {spec} encode_batch of 8 images on "
                   f"{card}: {win['wall_s']:.4f} s, device busy share "
-                  f"{win['busy_share']:.4f}, K1 {win['k1_share']:.4f}, D3 "
-                  f"{win['d3_share']:.4f}; {win['kernels']} kernels, "
+                  f"{win['busy_share']:.4f}, K1 (D3 in it) "
+                  f"{win['k1_share']:.4f}; {win['kernels']} kernels, "
                   f"{win['iterations']} iterations, "
                   f"{win['kernels_per_iteration']:.2f} kernels an iteration")
             check(win["device_events"] > 0,
                   f"the profiler saw no device activity in {spec}")
+            check(win["d3_launches"] == 0 and win["d3_share"] == 0,
+                  f"{spec}: D3 ran as a kernel of its own in the window")
 
     for spec in HILBERT_SPECS:
         runs[spec] = _measured(spec, paths, dev, card, out_dir)
@@ -1241,8 +1531,9 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
             for g, r in row))
     if dev.type == "cuda":
         for name, n in launches.items():
-            check(n > 0, f"{name} never launched on its main path")
-    return runs, launches
+            check(n > 0 or name == "D3",
+                  f"{name} never launched on its main path")
+    return runs, launches, windows
 
 
 def phase_card_vs_cpu(imgs, runs, dev, crop):
@@ -1278,6 +1569,17 @@ def phase_card_vs_cpu(imgs, runs, dev, crop):
           f"CPU decode MSEs {cpu_mses} != fused MSEs {rec['fused_mses']}")
     print(f"  voronoi(128): {len(cpu_mses)} full-size streams decoded on the "
           "CPU give the fused MSEs exactly")
+    if dev.type == "cuda":  # hours on the CPU's plain version
+        img = synth_natural(np.random.default_rng(42), 2160, 3840)
+        t0 = time.perf_counter()
+        data = from_spec("voronoi(128)", device="cuda").encode(img)
+        t1 = time.perf_counter()
+        check(hashlib.sha256(data).hexdigest() == VORONOI_4K_SHA,
+              "voronoi(128) of the golden 3840x2160 image: the card's stream "
+              "does not hash to the pinned one")
+        print(f"  voronoi(128): the golden 3840x2160 image (K1's unpacked "
+              f"path, 8.3M points) encodes on the card to the pinned stream "
+              f"({len(data)} B, sha {VORONOI_4K_SHA[:6]}..., {t1 - t0:.2f} s)")
 
 
 def main() -> int:
@@ -1293,43 +1595,79 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     imgs = [synth_image(rng, sz["side"], sz["side"]) for _ in range(8)]
     imgs.append(synth_image(rng, *sz["div2k"]))
+    clock = [time.perf_counter()]
+
+    def took(what):
+        clock.append(time.perf_counter())
+        print(f"  [{what} took {clock[-1] - clock[-2]:.1f} s]")
+
     max_err, d3_err, timings = phase_kernel(imgs, dev, card, sz)
+    took("phase 3, K1 and D3")
     rle = phase_rle_kernels(imgs, dev, card, sz)
+    took("phase 3, K2 and K3")
     huf = phase_huffman_kernels(imgs, dev, card, sz)
+    took("phase 3, D1 and D2")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = []
         for i, im in enumerate(imgs):
             paths.append(os.path.join(tmp, f"img{i}_{im.shape[1]}x{im.shape[0]}.png"))
             save_png(im, paths[-1])
-        runs, launches = phase_main_path(imgs, paths, dev, card,
-                                         os.path.join(tmp, "output"))
+        runs, launches, windows = phase_main_path(
+            imgs, paths, dev, card, os.path.join(tmp, "output"))
+        took("phase 4")
         phase_card_vs_cpu(imgs, runs, dev, sz["crop"])
+        took("phase 5")
 
     if dev.type == "cuda":
         print(run(["nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader"]).strip().splitlines()[0])
     else:
         print(card)
+    # K1's row is the kernel the main path launches: K1 with D3 in each
+    # lane's last block, alone by the profiler at (a), against K1's bound
+    # plus D3's and against both plain versions; K1 without the update
+    # beside it
     (ms, plain_ms, b_ms, b_by, dev_ms) = timings["a"]
     (ms_b, plain_ms_b, b_ms_b, _, dev_ms_b) = timings["b"]
+    step_a, step_b = timings["step a"], timings["step b"]
     kernels = [{
-        "id": "K1", "name": "kmeans_assign_stats", "route": "cuda",
+        "id": "K1", "name": "kmeans_fused_step", "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches["K1"],
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "device_ms": dev_ms, "ms_cluster_colors": ms_b,
-        "plain_ms_cluster_colors": plain_ms_b,
-        "device_ms_cluster_colors": dev_ms_b,
-        "bound_ms_cluster_colors": b_ms_b}]
+        "max_abs_err": max(max_err, d3_err),
+        "ms": step_a["fused_alone_ms"], "plain_ms": step_a["plain_ms"],
+        "bound_ms": step_a["bound_ms"], "bound_by": step_a["bound_by"],
+        "library_ms": None, "call_ms": step_a["fused_call_ms"],
+        "ms_cluster_colors": step_b["fused_alone_ms"],
+        "plain_ms_cluster_colors": step_b["plain_ms"],
+        "bound_ms_cluster_colors": step_b["bound_ms"],
+        "without_update": {
+            "name": "kmeans_assign_stats", "max_abs_err": max_err,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "ms_cluster_colors": ms_b,
+            "device_ms_cluster_colors": dev_ms_b,
+            "plain_ms_cluster_colors": plain_ms_b,
+            "bound_ms_cluster_colors": b_ms_b},
+        "step": step_a, "step_cluster_colors": step_b}]
+    # D3 runs on the main path inside K1's launches and never as a launch of
+    # its own: its time there is the one launch's less K1's, kernels alone
     d3_ms, d3_plain, d3_b, d3_by, d3_call = timings["D3"]
     kernels.append({
         "id": "D3", "name": "kmeans_step_update", "route": "cuda",
         "source": K1_SOURCE, "replaces": D3_REPLACES,
-        "launches": launches["D3"], "max_abs_err": d3_err, "ms": d3_ms,
+        "launches": launches["D3"], "launches_in_k1": launches["K1"],
+        "max_abs_err": d3_err, "ms": step_a["fused_tail_ms"],
         "plain_ms": d3_plain, "bound_ms": d3_b, "bound_by": d3_by,
-        "library_ms": None, "call_ms": d3_call})
+        "library_ms": None,
+        "fused_tail_ms": step_a["fused_tail_ms"],
+        "fused_tail_ms_cluster_colors": step_b["fused_tail_ms"],
+        "alone_ms": d3_ms, "alone_call_ms": d3_call})
+    if windows:
+        kernels[0]["encode_windows"] = {
+            spec: {k: w[k] for k in ("wall_s", "busy_share", "k1_share",
+                                     "kernels_per_iteration")}
+            for spec, w in windows.items()}
     for name, fn, replaces in (("K2", "approx_rle_wide", K2_REPLACES),
                                ("K3", "approx_rle_batch", K3_REPLACES)):
         err, (k_ms, p_ms, kb_ms, kb_by) = rle[name]
@@ -1354,7 +1692,7 @@ def main() -> int:
         kernels[-1].update({
             "ms_flat": full["8 flat images"]["ms"],
             "ms_flat_one_walker": full["8 flat images"]["one_walker_ms"]})
-    for name, fn, replaces in (("D1", "huf_pack", D1_REPLACES),
+    for name, fn, replaces in (("D1", "huf_pack_tiles", D1_REPLACES),
                                ("D2", "huf_walk", D2_REPLACES)):
         err, (k_ms, p_ms, kb_ms, kb_by) = huf[name]
         kernels.append({
@@ -1363,6 +1701,7 @@ def main() -> int:
             "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2,
             "bound_ms": kb_ms, "bound_by": kb_by, "library_ms": None})
     kernels[-2]["check_ms"] = huf["D1 check ms"]
+    kernels[-2].update(huf["D1 schedules"])
     kernels[-1]["routes_ms"] = huf["routes ms"]
     kernels[-1].update(huf["D2 passes"])
     kernels[-1]["root_table_launches"] = launches["D2 root table"]

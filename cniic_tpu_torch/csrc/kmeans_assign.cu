@@ -1,5 +1,6 @@
 // K1: one fused k-means step (assignment + centroid statistics), and D3: the
-// step's update (means, steal, plateau, freeze, iteration count), for Hopper.
+// step's update (means, steal, plateau, freeze, iteration count), which runs
+// in K1's last block of each lane or alone, for Hopper.
 //
 // K1 replaces the TPU kernel cniic_tpu/ops/kmeans_pallas.py::_kernel (and
 // its XLA twin _assign_stats_xla in cniic_tpu/ops/kmeans.py). For every
@@ -55,11 +56,27 @@
 //
 // D3 replaces the XLA programs of the JAX loop body around K1
 // (cniic_tpu/ops/kmeans.py::_means_from_sums, ::_steal_indices,
-// ::_plateau_update and the `where`s of kmeans_pallas.py::kmeans_loop_pallas).
-// One block updates every lane: truncated means sums // wsum, the Weyl steal
-// for empty clusters, moved/best/stall/act, the iteration count on the card,
-// and zeroes the statistics for the next K1. It is latency-bound (a few
-// thousand values); its point is that the loop needs no host round trip.
+// ::_plateau_update and the `where`s of kmeans_pallas.py::kmeans_loop_pallas):
+// per lane that K1 ran, truncated means sums // wsum, the Weyl steal for
+// empty clusters, moved/best/stall/act, the lane's iteration count, and the
+// statistics zeroed for the next K1. It is latency-bound (a few thousand
+// values a lane), so its design is about where it runs, not how fast:
+//
+//   * One device function, `lane_update`, does one lane with all the
+//     threads of a block (k*d divisions spread over 256 threads).
+//   * Fused (the k-means loop's step, kmeans_fused_step): K1's blocks of a
+//     lane each flush their statistics, fence, and take a ticket on the
+//     lane's counter; the block that draws the last ticket runs the lane's
+//     update, reading the statistics past L1. Every block of the lane read
+//     act[b] and copied cents[b] into shared memory before its ticket, so
+//     the last block may overwrite both. The lanes update in different
+//     blocks at once, a short lane's under a long lane's K1, and an
+//     iteration is one launch. The ticket wraps to 0 by itself (atomicInc).
+//   * The iteration count is per lane (`it[b]`, advanced while the lane
+//     runs): lanes start together and never thaw, so every active lane's
+//     count is the batch's, and no lane reads another's state.
+//   * Standalone (kmeans_step_update): one block a lane calls the same
+//     function after a K1 launched without the update.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cniic_tpu_torch/ops/kmeans_kernel.py). The launchers
@@ -68,6 +85,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -138,20 +157,85 @@ __device__ __forceinline__ void reduce_warp(u64 (&v)[N]) {
   }
 }
 
-template <int D, bool kSmemStats, bool kPacked>
+// D3's operands beside K1's: per-lane int64 state, and the lanes' tickets
+// (uint32 [B], zero before the first fused launch).
+struct Update {
+  long long* moved;         // [B]
+  long long* best;          // [B]
+  long long* stall;         // [B]
+  long long* it;            // [B]
+  const long long* thresh;  // [B]
+  unsigned* tickets;        // [B]
+  long long stall_lim;
+  long long max_iters;
+};
+
+// D3 for lane b, by all threads of one block, after every K1 block of the
+// lane has added its statistics (a later launch, or the last ticket).
+// Inlined into K1 on purpose: as a call it made the one-launch iteration
+// ~10 us slower at 4 lanes of 1024^2 points, k = 128.
+__device__ __forceinline__ void lane_update(
+    int b, u64* sums,                  // [B, k, d + 1]
+    int32_t* moved_k,                  // [B], K1's counts
+    const int32_t* __restrict__ ptsT,  // [B, d, n_max]
+    const int32_t* __restrict__ n,     // [B]
+    int32_t* cents,                    // [B, k, d]
+    int32_t* act,                      // [B]
+    const Update& up, int d, int n_max, int k) {
+  const long long it = up.it[b];
+  u64* s = sums + (size_t)b * k * (d + 1);
+  const u64 nn = n[b] > 1 ? (u64)n[b] : 1ull;
+  for (int idx = threadIdx.x; idx < k * d; idx += blockDim.x) {
+    const int j = idx / d;
+    const int dim = idx - j * d;
+    const long long wsum = (long long)__ldcg(s + (size_t)j * (d + 1) + d);
+    long long v;
+    if (wsum > 0) {
+      // both nonnegative: truncation = floor
+      v = (long long)__ldcg(s + (size_t)j * (d + 1) + dim) / wsum;
+    } else {
+      // the Weyl steal: ((it+1)*2654435769 + j*40503) & 0x7FFFFFFF over the
+      // lane's valid points (JAX's int32 wraparound has the same low bits)
+      const u64 mix = ((u64)(it + 1) * 2654435769ull + (u64)j * 40503ull) &
+                      0x7fffffffull;
+      v = ptsT[((size_t)b * d + dim) * n_max + (size_t)(mix % nn)];
+    }
+    cents[((size_t)b * k + j) * d + dim] = (int32_t)v;
+  }
+  __syncthreads();  // every mean read its sums, every thread read it[b]
+  for (int i = threadIdx.x; i < k * (d + 1); i += blockDim.x) s[i] = 0;
+  if (threadIdx.x == 0) {
+    const long long mv = __ldcg(moved_k + b);
+    long long be = up.best[b], st = up.stall[b];
+    if (mv < be - be / 50) {  // a 2% improvement
+      be = mv;
+      st = 0;
+    } else {
+      st += 1;
+    }
+    up.moved[b] = mv;
+    up.best[b] = be;
+    up.stall[b] = st;
+    moved_k[b] = 0;
+    act[b] = mv > up.thresh[b] && st < up.stall_lim && it + 1 < up.max_iters;
+    up.it[b] = it + 1;
+  }
+}
+
+template <int D, bool kSmemStats, bool kPacked, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
                     const int32_t* __restrict__ w,      // [B, n_max]
                     const int32_t* cur,                 // [B, n_max]
-                    const int32_t* __restrict__ cents,  // [B, k, D]
+                    int32_t* cents,                     // [B, k, D]
                     const int32_t* __restrict__ n,      // [B]
-                    const int32_t* __restrict__ act,    // [B]
+                    int32_t* act,                       // [B]
                     int32_t* new_out,                   // [B, n_max], may be cur
-                    u64* __restrict__ sums,             // [B, k, D + 1]
-                    int32_t* __restrict__ moved,        // [B]
-                    int n_max, int k, int shift) {
+                    u64* sums,                          // [B, k, D + 1]
+                    int32_t* moved,                     // [B]
+                    int n_max, int k, int shift, Update up) {
   const int b = blockIdx.y;
-  if (act[b] == 0) return;  // uniform over the block
+  if (act[b] == 0) return;  // uniform over the block and over the lane
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_moved;
@@ -289,6 +373,21 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
       if (v) atomicAdd(gsum + i, v);
     }
   }
+  if (kFused) {
+    // the lane's last block to get here runs its update: every thread's
+    // atomics are fenced before the block's ticket, and every block of the
+    // lane has read act[b] and cents[b] by the time the last one is drawn
+    __shared__ int s_last;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      s_last = atomicInc(up.tickets + b, gridDim.x - 1) == gridDim.x - 1;
+    __syncthreads();
+    if (s_last) {
+      __threadfence();
+      lane_update(b, sums, moved, ptsT, n, cents, act, up, D, n_max, k);
+    }
+  }
 }
 
 size_t smem_bytes(int d, int k, bool smem_stats) {
@@ -300,144 +399,134 @@ bool stats_in_smem(int d, int k) {
   return smem_bytes(d, k, true) <= kDefaultSmem;
 }
 
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms < 1) sms = 1;
-  }
-  return sms;
-}
+constexpr int kMaxDevices = 64;
 
-template <int D, bool kSmemStats, bool kPacked>
+// What the runtime was asked about one kernel instance on one device. The
+// shared-memory opt-in is only ever raised, so a launch that needs less than
+// an earlier one still fits; `mu` orders callers from several host threads.
+struct Asked {
+  size_t opted = kDefaultSmem;  // the instance's dynamic shared-memory limit
+  size_t smem = ~(size_t)0;     // the size `per_sm` was asked for
+  int per_sm = 0;               // resident blocks an SM at that size
+  int sms = 0;                  // the device's SM count
+};
+
+template <int D, bool kSmemStats, bool kPacked, bool kFused>
 cudaError_t launch(const int32_t* ptsT, const int32_t* w, const int32_t* cur,
-                   const int32_t* cents, const int32_t* n, const int32_t* act,
+                   int32_t* cents, const int32_t* n, int32_t* act,
                    int32_t* new_out, u64* sums, int32_t* moved, int B,
-                   int n_max, int k, cudaStream_t stream) {
-  auto kernel = assign_stats_kernel<D, kSmemStats, kPacked>;
+                   int n_max, int k, const Update& up, cudaStream_t stream) {
+  auto kernel = assign_stats_kernel<D, kSmemStats, kPacked, kFused>;
   const size_t smem = smem_bytes(D, k, kSmemStats);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
   // one wave: as many blocks as fit the card at once, shared by the lanes
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kThreads, smem);
+  // (asked of the runtime once per instance, device and shared-memory size)
+  static std::mutex mu;
+  static Asked asked[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (per_sm < 1) per_sm = 1;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int wave = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    Asked& a = asked[dev];
+    if (smem > a.opted) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      a.opted = smem;
+    }
+    if (smem != a.smem) {
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+      if (e != cudaSuccess) return e;
+      a.per_sm = per_sm < 1 ? 1 : per_sm;
+      a.smem = smem;
+    }
+    if (a.sms == 0) {
+      e = cudaDeviceGetAttribute(&a.sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return e;
+      if (a.sms < 1) a.sms = 1;
+    }
+    wave = a.per_sm * a.sms;
+  }
   const int tiles = (n_max + kTile - 1) / kTile;
-  int bx = (per_sm * num_sms() + B - 1) / B;
+  int bx = (wave + B - 1) / B;
   if (bx > tiles) bx = tiles;
   if (bx < 1) bx = 1;
   const int shift = kPacked ? log2_pow2_at_least(k) : 0;
-  assign_stats_kernel<D, kSmemStats, kPacked>
-      <<<dim3(bx, B), kThreads, smem, stream>>>(
-      ptsT, w, cur, cents, n, act, new_out, sums, moved, n_max, k, shift);
+  kernel<<<dim3(bx, B), kThreads, smem, stream>>>(
+      ptsT, w, cur, cents, n, act, new_out, sums, moved, n_max, k, shift, up);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kFused>
 cudaError_t launch_d(const int32_t* ptsT, const int32_t* w, const int32_t* cur,
-                     const int32_t* cents, const int32_t* n, const int32_t* act,
+                     int32_t* cents, const int32_t* n, int32_t* act,
                      int32_t* new_out, u64* sums, int32_t* moved, int B,
-                     int n_max, int k, bool packed, cudaStream_t stream) {
+                     int n_max, int k, bool packed, const Update& up,
+                     cudaStream_t stream) {
   const bool in_smem = stats_in_smem(D, k);
   if (packed && in_smem)
-    return launch<D, true, true>(ptsT, w, cur, cents, n, act, new_out, sums,
-                                 moved, B, n_max, k, stream);
+    return launch<D, true, true, kFused>(ptsT, w, cur, cents, n, act, new_out,
+                                         sums, moved, B, n_max, k, up, stream);
   if (packed)
-    return launch<D, false, true>(ptsT, w, cur, cents, n, act, new_out, sums,
-                                  moved, B, n_max, k, stream);
+    return launch<D, false, true, kFused>(ptsT, w, cur, cents, n, act, new_out,
+                                          sums, moved, B, n_max, k, up, stream);
   if (in_smem)
-    return launch<D, true, false>(ptsT, w, cur, cents, n, act, new_out, sums,
-                                  moved, B, n_max, k, stream);
-  return launch<D, false, false>(ptsT, w, cur, cents, n, act, new_out, sums,
-                                 moved, B, n_max, k, stream);
+    return launch<D, true, false, kFused>(ptsT, w, cur, cents, n, act, new_out,
+                                          sums, moved, B, n_max, k, up, stream);
+  return launch<D, false, false, kFused>(ptsT, w, cur, cents, n, act, new_out,
+                                         sums, moved, B, n_max, k, up, stream);
 }
 
-// D3: one block for the batch. s_act holds the lanes K1 ran on this step.
-__global__ void __launch_bounds__(kThreads)
-step_update_kernel(u64* __restrict__ sums,           // [B, k, d + 1] int64
-                   int32_t* __restrict__ moved_k,     // [B], K1's counts
-                   const int32_t* __restrict__ ptsT,  // [B, d, n_max]
-                   const int32_t* __restrict__ n,     // [B]
-                   int32_t* __restrict__ cents,       // [B, k, d]
-                   long long* __restrict__ moved,     // [B]
-                   long long* __restrict__ best,      // [B]
-                   long long* __restrict__ stall,     // [B]
-                   int32_t* __restrict__ act,         // [B]
-                   long long* __restrict__ state,     // [2]: it, any active
-                   const long long* __restrict__ thresh,  // [B]
-                   int B, int d, int n_max, int k, long long stall_lim,
-                   long long max_iters) {
-  extern __shared__ int s_act[];  // [B]
-  __shared__ int s_go;
-  const long long it = state[0];
-  if (threadIdx.x == 0) s_go = 0;
-  __syncthreads();
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    s_act[b] = act[b];
-    if (s_act[b]) s_go = 1;
+template <bool kFused>
+cudaError_t launch_step(const void* ptsT, const void* w, const void* cur,
+                        void* cents, const void* n, void* act, void* new_out,
+                        void* sums, void* moved, int B, int d, int n_max, int k,
+                        int packed, const Update& up, void* stream) {
+  if (B <= 0 || n_max <= 0) return cudaSuccess;
+  if (k < 1 || B > 65535) return cudaErrorInvalidValue;
+  const int32_t* P = static_cast<const int32_t*>(ptsT);
+  const int32_t* W = static_cast<const int32_t*>(w);
+  const int32_t* C = static_cast<const int32_t*>(cur);
+  int32_t* M = static_cast<int32_t*>(cents);
+  const int32_t* N = static_cast<const int32_t*>(n);
+  int32_t* A = static_cast<int32_t*>(act);
+  int32_t* O = static_cast<int32_t*>(new_out);
+  u64* S = static_cast<u64*>(sums);
+  int32_t* V = static_cast<int32_t*>(moved);
+  const bool pk = packed != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CNIIC_K1_CASE(D_)                                                     \
+  case D_:                                                                    \
+    return launch_d<D_, kFused>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk,   \
+                                up, s);
+  switch (d) {
+    CNIIC_K1_CASE(1)
+    CNIIC_K1_CASE(2)
+    CNIIC_K1_CASE(3)
+    CNIIC_K1_CASE(4)
+    CNIIC_K1_CASE(5)
+    CNIIC_K1_CASE(6)
+    CNIIC_K1_CASE(7)
+    CNIIC_K1_CASE(8)
+    default: return cudaErrorInvalidValue;
   }
-  __syncthreads();
-  // no lane ran: K1 changed nothing, and neither does this step
-  if (!s_go) return;
+#undef CNIIC_K1_CASE
+}
 
-  const int kd = k * d;
-  for (int idx = threadIdx.x; idx < B * kd; idx += blockDim.x) {
-    const int b = idx / kd;
-    if (!s_act[b]) continue;
-    const int j = (idx - b * kd) / d;
-    const int dim = idx - b * kd - j * d;
-    const u64* s = sums + ((size_t)b * k + j) * (d + 1);
-    const long long wsum = (long long)s[d];
-    long long v;
-    if (wsum > 0) {
-      v = (long long)s[dim] / wsum;  // both nonnegative: truncation = floor
-    } else {
-      // the Weyl steal: ((it+1)*2654435769 + j*40503) & 0x7FFFFFFF over the
-      // lane's valid points (JAX's int32 wraparound has the same low bits)
-      const u64 mix = ((u64)(it + 1) * 2654435769ull + (u64)j * 40503ull) &
-                      0x7fffffffull;
-      const u64 nn = n[b] > 1 ? (u64)n[b] : 1ull;
-      v = ptsT[((size_t)b * d + dim) * n_max + (size_t)(mix % nn)];
-    }
-    cents[((size_t)b * k + j) * d + dim] = (int32_t)v;
-  }
-  __syncthreads();  // every mean read its sums
-  for (int i = threadIdx.x; i < B * k * (d + 1); i += blockDim.x) sums[i] = 0;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    long long mo = moved[b], be = best[b], st = stall[b];
-    if (s_act[b]) {
-      const long long mv = moved_k[b];
-      mo = mv;
-      if (mv < be - be / 50) {  // a 2% improvement
-        be = mv;
-        st = 0;
-      } else {
-        st += 1;
-      }
-      moved[b] = mo;
-      best[b] = be;
-      stall[b] = st;
-    }
-    moved_k[b] = 0;
-    const int a = mo > thresh[b] && st < stall_lim && it + 1 < max_iters;
-    act[b] = a;
-    s_act[b] = a;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int any = 0;
-    for (int b = 0; b < B; ++b) any |= s_act[b];
-    state[0] = it + 1;
-    state[1] = any;
-  }
+// D3 alone: one block a lane that the K1 before it ran.
+__global__ void __launch_bounds__(kThreads)
+step_update_kernel(u64* sums, int32_t* moved_k,
+                   const int32_t* __restrict__ ptsT,
+                   const int32_t* __restrict__ n, int32_t* cents, int32_t* act,
+                   int d, int n_max, int k, Update up) {
+  const int b = blockIdx.x;
+  if (act[b] == 0) return;
+  lane_update(b, sums, moved_k, ptsT, n, cents, act, up, d, n_max, k);
 }
 
 }  // namespace
@@ -453,50 +542,49 @@ int kmeans_assign_stats(const void* ptsT, const void* w, const void* cur,
                         const void* cents, const void* n, const void* act,
                         void* new_out, void* sums, void* moved, int B, int d,
                         int n_max, int k, int packed, void* stream) {
-  if (B <= 0 || n_max <= 0) return cudaSuccess;
-  if (k < 1 || B > 65535) return cudaErrorInvalidValue;
-  const int32_t* P = static_cast<const int32_t*>(ptsT);
-  const int32_t* W = static_cast<const int32_t*>(w);
-  const int32_t* C = static_cast<const int32_t*>(cur);
-  const int32_t* M = static_cast<const int32_t*>(cents);
-  const int32_t* N = static_cast<const int32_t*>(n);
-  const int32_t* A = static_cast<const int32_t*>(act);
-  int32_t* O = static_cast<int32_t*>(new_out);
-  u64* S = static_cast<u64*>(sums);
-  int32_t* V = static_cast<int32_t*>(moved);
-  const bool pk = packed != 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 1: return launch_d<1>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
-    case 2: return launch_d<2>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
-    case 3: return launch_d<3>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
-    case 4: return launch_d<4>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
-    case 5: return launch_d<5>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
-    case 6: return launch_d<6>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
-    case 7: return launch_d<7>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
-    case 8: return launch_d<8>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk, s);
-    default: return cudaErrorInvalidValue;
-  }
+  // the unfused kernel writes neither cents nor act
+  return launch_step<false>(ptsT, w, cur, const_cast<void*>(cents), n,
+                            const_cast<void*>(act), new_out, sums, moved, B, d,
+                            n_max, k, packed, Update{}, stream);
 }
 
-// Launch one D3 update on `stream` (shapes on the kernel; moved, best,
-// stall, state and thresh are int64). Returns a cudaError_t.
+// Launch one whole iteration on `stream`: K1, then D3 in each lane's last
+// block. K1's operands as above (`moved_k` its int32 counts), D3's as in
+// kmeans_step_update, and `tickets` uint32 [B], zero before the first launch
+// (the kernel leaves them zero). Returns a cudaError_t.
+int kmeans_fused_step(const void* ptsT, const void* w, const void* cur,
+                      void* cents, const void* n, void* act, void* new_out,
+                      void* sums, void* moved_k, void* moved, void* best,
+                      void* stall, void* it, const void* thresh, void* tickets,
+                      int B, int d, int n_max, int k, int packed,
+                      long long stall_lim, long long max_iters, void* stream) {
+  const Update up{static_cast<long long*>(moved), static_cast<long long*>(best),
+                  static_cast<long long*>(stall), static_cast<long long*>(it),
+                  static_cast<const long long*>(thresh),
+                  static_cast<unsigned*>(tickets), stall_lim, max_iters};
+  return launch_step<true>(ptsT, w, cur, cents, n, act, new_out, sums, moved_k,
+                           B, d, n_max, k, packed, up, stream);
+}
+
+// Launch one D3 update on `stream` after a kmeans_assign_stats (shapes on
+// lane_update; moved, best, stall, it and thresh are int64 [B]). Returns a
+// cudaError_t.
 int kmeans_step_update(void* sums, void* moved_k, const void* ptsT,
                        const void* n, void* cents, void* moved, void* best,
-                       void* stall, void* act, void* state, const void* thresh,
+                       void* stall, void* act, void* it, const void* thresh,
                        int B, int d, int n_max, int k, long long stall_lim,
                        long long max_iters, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (d < 1 || k < 1 || n_max < 1) return cudaErrorInvalidValue;
-  step_update_kernel<<<1, kThreads, (size_t)B * sizeof(int),
-                       static_cast<cudaStream_t>(stream)>>>(
+  const Update up{static_cast<long long*>(moved), static_cast<long long*>(best),
+                  static_cast<long long*>(stall), static_cast<long long*>(it),
+                  static_cast<const long long*>(thresh), nullptr, stall_lim,
+                  max_iters};
+  step_update_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<u64*>(sums), static_cast<int32_t*>(moved_k),
       static_cast<const int32_t*>(ptsT), static_cast<const int32_t*>(n),
-      static_cast<int32_t*>(cents), static_cast<long long*>(moved),
-      static_cast<long long*>(best), static_cast<long long*>(stall),
-      static_cast<int32_t*>(act), static_cast<long long*>(state),
-      static_cast<const long long*>(thresh), B, d, n_max, k, stall_lim,
-      max_iters);
+      static_cast<int32_t*>(cents), static_cast<int32_t*>(act), d, n_max, k,
+      up);
   return cudaGetLastError();
 }
 

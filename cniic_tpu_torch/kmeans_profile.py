@@ -14,7 +14,9 @@ and a profiler window over one warm encode of each k-means codec.
 * `encode_window(codec, imgs)`: torch.profiler over one warm
   `encode_batch`: the device busy share of the window, each kernel's share,
   and the device kernels launched per k-means iteration. `chip_smoke.py`
-  phase 4 prints it for both k-means codecs.
+  phase 4 prints it for both k-means codecs. Here voronoi(128) is also
+  read with the update as a launch of its own (`two_launches`: the engine's
+  step prepared unfused for the duration), one, two, two, one in turns.
 
 Needs a CUDA card; prints one line per reading and a JSON line at the end.
 """
@@ -22,7 +24,9 @@ Needs a CUDA card; prints one line per reading and a JSON line at the end.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import functools
 import json
 import logging
 import os
@@ -175,44 +179,66 @@ def _union_us(spans) -> float:
     return total
 
 
-class _IterLog(logging.Handler):
+class IterLog(logging.Handler):
+    """Counts the k-means loops run (`loops`) and their iterations
+    (`iters`) from the engine's log lines, while attached (`with`)."""
+
     def __init__(self):
         super().__init__()
         self.iters = 0
+        self.loops = 0
 
     def emit(self, record):
         m = re.match(r"k-means: (\d+) iterations", record.getMessage())
         if m:
             self.iters += int(m.group(1))
+            self.loops += 1
+
+    def __enter__(self):
+        self._logger = logging.getLogger(km.__name__)
+        self._level = self._logger.level
+        self._logger.addHandler(self)
+        self._logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        self._logger.setLevel(self._level)
+
+
+@contextlib.contextmanager
+def two_launches():
+    """For the duration the engine's loop launches K1 then D3 an iteration
+    (`prepare_step(fused=False)`), the iteration as it was before the update
+    moved into K1's last blocks: for comparing the two in one process."""
+    fused = km.prepare_step
+    km.prepare_step = functools.partial(fused, fused=False)
+    try:
+        yield
+    finally:
+        km.prepare_step = fused
 
 
 def encode_window(codec, imgs) -> dict:
     """torch.profiler over one warm `codec.encode_batch(imgs)` on the card:
     wall seconds, device busy share (union of device activity over the
-    window), the share of K1 and D3, device kernels in the window, K1 and
-    D3 launches, k-means iterations (all lane chunks) and kernels per
-    iteration."""
+    window), the share of the step's kernel (K1, with D3 in each lane's
+    last block) and of D3's own kernel (0 unless `two_launches` keeps it a
+    launch of its own), device kernels in the window, K1 and D3 launches,
+    k-means iterations (all lane chunks) and kernels per iteration."""
     from torch.profiler import ProfilerActivity, profile
 
     codec.encode_batch(imgs)  # warm
     torch.cuda.synchronize()
-    handler = _IterLog()
-    logger = logging.getLogger(km.__name__)
-    level = logger.level
-    logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
     k1_0 = kmeans_kernel.assign_stats.launches
     d3_0 = kmeans_kernel.step_update.launches
-    try:
+    with IterLog() as handler:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             codec.encode_batch(imgs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    finally:
-        logger.removeHandler(handler)
-        logger.setLevel(level)
     spans = _device_intervals(prof)
     kern = [s for s in spans if "memcpy" not in s[2].lower()
             and "memset" not in s[2].lower()]
@@ -266,6 +292,14 @@ def main(argv=None) -> int:
     for spec in ("voronoi(128)", "cluster-colors(32)"):
         windows[spec] = encode_window(from_spec(spec, device="cuda"), imgs)
         print(f"{spec} encode window: {json.dumps(windows[spec])}")
+    turns_v = []
+    for split in (False, True, True, False):
+        with two_launches() if split else contextlib.nullcontext():
+            win = encode_window(from_spec("voronoi(128)", device="cuda"), imgs)
+        turns_v.append({"launches_an_iteration": 2 if split else 1, **win})
+        print(f"voronoi(128) encode window, {2 if split else 1} launch(es) an "
+              f"iteration: {json.dumps(win)}")
+    windows["voronoi(128), one and two launches in turns"] = turns_v
     print(json.dumps({"card": card, "k1_us": {
         key: {label: [t * 1e3 for t in ms] for label, ms in times.items()}
         for key, times in turns.items()}, "encode": windows}))

@@ -10,11 +10,18 @@ to get each symbol's bit offset, and write each code's bits MSB-first into
 equals ADD; a code of <= 63 bits spans at most three words. Bit order and
 the zero-padded tail match the reference exactly (bit.rs:243-253).
 
-``pack_words`` is D1's wrapper: it checks its inputs, takes the scan with
-torch ops (as JAX leaves it to XLA) and launches the CUDA kernel
-(``csrc/huffman_dev.cu`` ``pack_kernel``, built with nvcc on first use)
-for CUDA tensors, raising if the launch fails; for CPU tensors it runs the
-plain version ``pack_words_ref``. ``pack_words.launches`` counts launches.
+``pack_words`` is D1's wrapper: it checks its inputs and launches the CUDA
+kernel (``csrc/huffman_dev.cu`` ``pack_tiles_kernel``, built with nvcc on
+first use) for CUDA tensors, raising if the launch fails; for CPU tensors it
+runs the plain version ``pack_words_ref``. ``pack_words.launches`` counts
+launches. The kernel makes one pass: a block takes a tile of ``TILE``
+symbols, scans their lengths itself (the tile's base from a look-back over
+the tiles before it), assembles the tile's words in shared memory and
+stores them, sharing only its two edge words with its neighbours;
+``pack_words_tiled_model`` is that schedule in numpy, for the CPU tests.
+``one_pass=False`` keeps the schedule it replaced (a torch gather and int64
+cumsum, then ``pack_kernel``, one thread a symbol with global ``atomicOr``);
+no schedule changes a word.
 
 The entry points keep the JAX signatures with an explicit ``device``:
 ``pack_bits_device`` (one stream) and ``pack_bits_batch`` (B streams in one
@@ -37,6 +44,7 @@ from .. import _build, resolve_device
 SOURCE = os.path.join(_build.PKG_DIR, "csrc", "huffman_dev.cu")
 NAME = "huffman_dev"
 MAX_CODE_BITS = 63
+TILE = 2048   # symbols a block of the one-pass kernel takes (huf_pack_tile)
 _M32 = 0xFFFFFFFF
 
 _count_lock = threading.Lock()
@@ -55,6 +63,12 @@ def load_library() -> ctypes.CDLL:
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.huf_pack.argtypes = [vp] * 6 + [ci, i64, ci, i64, vp]
     lib.huf_pack.restype = ci
+    lib.huf_pack_tiles.argtypes = [vp] * 7 + [ci, i64, ci, i64, vp]
+    lib.huf_pack_tiles.restype = ci
+    lib.huf_pack_book_entries.argtypes = [ci]
+    lib.huf_pack_book_entries.restype = ci
+    lib.huf_pack_tile.argtypes = []
+    lib.huf_pack_tile.restype = ci
     lib.huf_walk.argtypes = ([vp] * 4 + [ci] * 3 + [vp, vp, ci] + [vp] * 3
                              + [ci, vp, vp])
     lib.huf_walk.restype = ci
@@ -121,27 +135,45 @@ def _check(ids, hi, lo, lens) -> None:
         raise ValueError(f"symbol ids must lie in [0, {u})")
 
 
-def pack_words(ids, hi, lo, lens, n_words: int):
+def pack_words(ids, hi, lo, lens, n_words: int, one_pass: bool = True):
     """D1: words int32 [B, n_words] (bit patterns of the u32 words, MSB
     first) of B streams of ids int32 [B, n] against per-stream codebooks
     hi, lo, lens int32 [B, u] (hi/lo: the u64 codes' halves as bit
-    patterns). Bits at or past word n_words are dropped."""
+    patterns). Bits at or past word n_words are dropped. `one_pass` picks
+    the kernel's schedule on the card (see the module note), never a word."""
     _check(ids, hi, lo, lens)
     if ids.device.type == "cpu":
         return pack_words_ref(ids, hi, lo, lens, n_words)
     lib = load_library()
     dev = ids.device
     B, n = ids.shape
-    g_len = torch.gather(lens, 1, ids.long())
-    offs = torch.cumsum(g_len, 1, dtype=torch.int64) - g_len
     words = torch.zeros((B, n_words), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.huf_pack(ids.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-                          lens.data_ptr(), offs.data_ptr(), words.data_ptr(),
-                          B, n, hi.shape[1], n_words,
-                          torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if one_pass:
+        # a ticket and a descriptor a tile, per stream
+        scratch = torch.zeros((B, 1 + -(-n // TILE)), dtype=torch.int64,
+                              device=dev)
+        # a large codebook is read as 16-byte entries the launcher fills
+        entries = lib.huf_pack_book_entries(hi.shape[1])
+        book = (torch.empty((B, entries, 4), dtype=torch.int32, device=dev)
+                if entries else None)
+        with torch.cuda.device(dev):
+            rc = lib.huf_pack_tiles(
+                ids.data_ptr(), hi.data_ptr(), lo.data_ptr(), lens.data_ptr(),
+                words.data_ptr(), scratch.data_ptr(),
+                book.data_ptr() if entries else None, B, n, hi.shape[1],
+                n_words, stream)
+    else:
+        g_len = torch.gather(lens, 1, ids.long())
+        offs = torch.cumsum(g_len, 1, dtype=torch.int64) - g_len
+        with torch.cuda.device(dev):
+            rc = lib.huf_pack(ids.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                              lens.data_ptr(), offs.data_ptr(),
+                              words.data_ptr(), B, n, hi.shape[1], n_words,
+                              stream)
     if rc != 0:
-        raise_launch(lib, "huf_pack", rc, f"B, n = {B}, {n}")
+        raise_launch(lib, "huf_pack_tiles" if one_pass else "huf_pack", rc,
+                     f"B, n = {B}, {n}")
     count_launch(pack_words)
     return words
 
@@ -178,6 +210,56 @@ def pack_words_ref(ids, hi, lo, lens, n_words: int):
                            torch.where(valid, w, zero))
     words = words[:, :n_words]
     return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
+
+
+def pack_words_tiled_model(ids, hi, lo, lens, n_words: int,
+                           tile: int = TILE) -> np.ndarray:
+    """The one-pass kernel's schedule in numpy, for the CPU tests: uint32
+    [B, n_words] from numpy operands shaped as `pack_words`'s. Per stream,
+    tiles of `tile` symbols in order: the lengths scanned inside the tile,
+    the tile's base carried from the tiles before it (the look-back's
+    result), the codes ORed into a buffer of the tile's own that starts at
+    the word holding the base bit, whole words stored, and the first and
+    last word ORed into the output where a neighbouring tile shares them."""
+    ids, lens = np.asarray(ids), np.asarray(lens).astype(np.int64)
+    hi = np.asarray(hi).view(np.uint32).astype(np.uint64)
+    lo = np.asarray(lo).view(np.uint32).astype(np.uint64)
+    B, n = ids.shape
+    out = np.zeros((B, n_words), np.uint32)
+    buf_words = (tile * MAX_CODE_BITS + 31) // 32 + 1
+    for b in range(B):
+        base = 0
+        for start in range(0, n, tile):
+            sym = ids[b, start:start + tile]
+            ln = lens[b][sym]
+            at = np.cumsum(ln) - ln            # the scan inside the tile
+            total = int(ln.sum())
+            shift = base & 31
+            buf = np.zeros(buf_words, np.uint32)
+            for off, length, h, l in zip(at + shift, ln, hi[b][sym],
+                                         lo[b][sym]):
+                if length == 0:
+                    continue
+                # (h, l) shifted left by 96 - s0 - len in a 96-bit window
+                k = 96 - (int(off) & 31) - int(length)
+                window = ((int(h) << 32) | int(l)) << k
+                for j in range(3):
+                    w = (window >> (64 - 32 * j)) & _M32
+                    if w:
+                        buf[(int(off) >> 5) + j] |= np.uint32(w)
+            bits = shift + total
+            used = (bits + 31) >> 5
+            for i in range(used):
+                g = (base >> 5) + i
+                if g >= n_words:
+                    break
+                edge = (i == 0 and shift) or (i == used - 1 and bits & 31)
+                if edge:
+                    out[b, g] |= buf[i]
+                else:
+                    out[b, g] = buf[i]     # a whole word: this tile's alone
+            base += total
+    return out
 
 
 def _words_to_bytes(words: np.ndarray, total_bits: int) -> bytes:

@@ -1,4 +1,4 @@
-"""K1 and D3: the k-means step's two CUDA kernels and their plain versions.
+"""K1 and D3: the k-means step's CUDA kernels and their plain versions.
 
 K1 replaces the TPU kernel ``cniic_tpu/ops/kmeans_pallas.py::_kernel`` (and
 its XLA twin ``_assign_stats_xla`` in ``cniic_tpu/ops/kmeans.py``): the
@@ -8,7 +8,8 @@ loop body around it (``_means_from_sums``, ``_steal_indices``,
 step's update. Both are CUDA C++ for ``sm_90a`` in ``csrc/kmeans_assign.cu``,
 built with nvcc on first use into ``_build/`` and called through plain C
 launchers with ctypes. The source note says what bounds each on the card
-and what the design does about it.
+and what the design does about it. The loop's iteration is one launch: K1
+with D3 run by the last block of each lane (``prepare_step``).
 
 * ``assign_stats`` is K1's wrapper. It checks devices, dtypes, shapes,
   contiguity and the distance bound, picks the packed-key or the unpacked
@@ -21,9 +22,14 @@ and what the design does about it.
 * ``assign_stats_ref`` is K1's plain PyTorch version: blocked over points,
   int64 distances, ``torch.argmin`` with the strict-move rule, and
   ``index_add_`` for the statistics.
-* ``step_update`` is D3's wrapper (same rules, ``step_update.launches``);
-  ``step_update_ref`` its plain version, the torch ops of the engine's
-  loop body gathered into one function that never syncs with the host.
+* ``step_update`` is D3's wrapper for the update alone, one block a lane
+  (same rules, ``step_update.launches``); ``step_update_ref`` its plain
+  version, the torch ops of the engine's loop body gathered into one
+  function that never syncs with the host.
+* ``prepare_step`` checks the operands of a whole iteration once and returns
+  a callable that launches it: on the card one kernel, K1 whose last block
+  of each lane runs D3 (counted in ``assign_stats.launches``); with
+  ``fused=False`` or on the CPU, ``assign_stats`` then ``step_update``.
 
 K1's operands (B lanes, n_max points per lane, d dimensions, k centroids):
 ptsT int32[B, d, n_max] (nonnegative), w int32[B, n_max], cur int32[B, n_max]
@@ -78,6 +84,8 @@ def load_library() -> ctypes.CDLL:
     lib.kmeans_assign_stats.restype = ci
     lib.kmeans_step_update.argtypes = [vp] * 11 + [ci] * 4 + [cl, cl, vp]
     lib.kmeans_step_update.restype = ci
+    lib.kmeans_fused_step.argtypes = [vp] * 15 + [ci] * 5 + [cl, cl, vp]
+    lib.kmeans_fused_step.restype = ci
     lib.kmeans_stats_in_smem.argtypes = [ci, ci]
     lib.kmeans_stats_in_smem.restype = ci
     lib.kmeans_error_string.argtypes = [ci]
@@ -237,13 +245,15 @@ def assign_stats_ref(ptsT, w, cur, cents, n, act):
 
 def steal_indices(k: int, it, n):
     """Empty-cluster picks: the Weyl hash of (iteration, cluster) over each
-    lane's valid points. it: an int or an int64 scalar tensor; n int64[B];
-    returns int64[B, k]. The reference computes the hash in int32 with
-    wraparound; ``(((it+1)*2654435769 + j*40503) & 0x7FFFFFFF) % max(n,1)``
+    lane's valid points. it: an int, an int64 scalar tensor or int64[B] (a
+    count a lane); n int64[B]; returns int64[B, k]. The reference computes
+    the hash in int32 with wraparound;
+    ``(((it+1)*2654435769 + j*40503) & 0x7FFFFFFF) % max(n,1)``
     in int64 is the same number without relying on overflow."""
     j = torch.arange(k, dtype=torch.int64, device=n.device)
-    mix = ((it + 1) * 2654435769 + j * 40503) & 0x7FFFFFFF
-    return mix[None, :] % n.clamp(min=1)[:, None]
+    it = torch.as_tensor(it, dtype=torch.int64, device=n.device).reshape(-1, 1)
+    mix = ((it + 1) * 2654435769 + j[None, :] * 40503) & 0x7FFFFFFF
+    return mix % n.clamp(min=1)[:, None]
 
 
 def plateau_update(act, new_moved, best, stall):
@@ -255,7 +265,7 @@ def plateau_update(act, new_moved, best, stall):
 
 
 def _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                  state, thresh) -> None:
+                  it, thresh) -> None:
     if ptsT.dim() != 3 or cents.dim() != 3:
         raise ValueError("ptsT must be [B, d, n_max] and cents [B, k, d]")
     B, d, n_max = ptsT.shape
@@ -266,30 +276,31 @@ def _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
         "ptsT": (ptsT, i32, (B, d, n_max)), "n": (n, i32, (B,)),
         "cents": (cents, i32, (B, k, d)), "moved": (moved, i64, (B,)),
         "best": (best, i64, (B,)), "stall": (stall, i64, (B,)),
-        "act": (act, i32, (B,)), "state": (state, i64, (2,)),
+        "act": (act, i32, (B,)), "it": (it, i64, (B,)),
         "thresh": (thresh, i64, (B,))}, ptsT.device)
     if k < 1:
         raise ValueError("k-means needs k >= 1")
 
 
 def step_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                state, thresh, stall_lim: int, max_iters: int) -> None:
+                it, thresh, stall_lim: int, max_iters: int) -> None:
     """D3, in place: after a K1 step over the lanes `act` names, set their
-    centroids to the truncated means (the steal for empty clusters), their
-    moved / best / stall to the step's, advance the iteration count
-    state[0], recompute act (moved > thresh, stall < stall_lim, state[0] <
-    max_iters), set state[1] to whether any lane is active, and zero sums
-    and moved_k for the next K1. When no lane was active nothing changes.
+    centroids to the truncated means (the steal for empty clusters, hashed
+    from the lane's iteration count it[b]), their moved / best / stall to
+    the step's, advance it[b], recompute act[b] (moved > thresh, stall <
+    stall_lim, it < max_iters), and zero their sums and moved_k for the next
+    K1. A lane that did not run (act == 0) keeps everything it has.
 
     sums int64[B, k, d+1] and moved_k int32[B] are K1's outputs; moved,
-    best, stall, thresh int64[B]; act int32[B]; state int64[2].
+    best, stall, it, thresh int64[B]; act int32[B]. Lanes start together
+    and never thaw, so every active lane's count is the batch's.
     CUDA tensors launch the kernel, CPU tensors take `step_update_ref`."""
     _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                  state, thresh)
+                  it, thresh)
     dev = ptsT.device
     if dev.type == "cpu":
         step_update_ref(sums, moved_k, ptsT, n, cents, moved, best, stall,
-                        act, state, thresh, stall_lim, max_iters)
+                        act, it, thresh, stall_lim, max_iters)
         return
     if dev.type != "cuda":
         raise ValueError(f"step_update runs on cuda or cpu tensors, not {dev}")
@@ -301,7 +312,7 @@ def step_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
         rc = lib.kmeans_step_update(
             sums.data_ptr(), moved_k.data_ptr(), ptsT.data_ptr(),
             n.data_ptr(), cents.data_ptr(), moved.data_ptr(), best.data_ptr(),
-            stall.data_ptr(), act.data_ptr(), state.data_ptr(),
+            stall.data_ptr(), act.data_ptr(), it.data_ptr(),
             thresh.data_ptr(), B, d, n_max, k, stall_lim, max_iters, stream)
     _raise_launch(lib, rc, f"kmeans_step_update (B={B}, d={d}, k={k})")
     with _count_lock:
@@ -312,13 +323,11 @@ step_update.launches = 0
 
 
 def step_update_ref(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                    state, thresh, stall_lim: int, max_iters: int) -> None:
+                    it, thresh, stall_lim: int, max_iters: int) -> None:
     """The plain PyTorch version of D3 (any device, no host sync)."""
     d = ptsT.shape[1]
     k = cents.shape[1]
     a = act != 0
-    go = a.any()
-    it = state[0]
     wsum = sums[:, :, d]
     means = sums[:, :, :d] // wsum.clamp(min=1)[:, :, None]
     steal = steal_indices(k, it, n.to(torch.int64))
@@ -331,9 +340,66 @@ def step_update_ref(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
     new_best, new_stall = plateau_update(a, mv, best, stall)
     best.copy_(new_best)
     stall.copy_(new_stall)
-    it_next = it + go.to(torch.int64)
+    it_next = it + a.to(torch.int64)
     live = (moved > thresh) & (stall < stall_lim) & (it_next < max_iters)
-    act.copy_(torch.where(go, live, a).to(torch.int32))
-    state.copy_(torch.stack([it_next, act.any().to(torch.int64)]))
-    sums.zero_()
-    moved_k.zero_()
+    act.copy_((a & live).to(torch.int32))
+    it.copy_(it_next)
+    sums.mul_((~a)[:, None, None].to(torch.int64))
+    moved_k.mul_((~a).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the loop's iteration: K1 with D3 in each lane's last block
+# ---------------------------------------------------------------------------
+
+def prepare_step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
+                 best, stall, it, thresh, stall_lim: int, max_iters: int,
+                 fused: bool = True):
+    """Check the operands of a whole iteration once and return a callable
+    that runs it in place, any number of times: K1 (`assign_stats` over the
+    lanes `act` names, the new ids written over `cur`) then D3
+    (`step_update`).
+
+    On CUDA tensors the iteration is one launch, K1 whose last block of
+    each lane runs the lane's update, on the stream that is current now
+    (the caller keeps the tensors' device current while it calls); it adds
+    one to `assign_stats.launches`. `fused=False` keeps the two launches,
+    `assign_stats` then `step_update`, each checking its operands every
+    time. CPU tensors take the two plain versions either way."""
+    out = (cur, sums, moved_k)
+    _check(ptsT, w, cur, cents, n, act, pmax, out)
+    _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act, it,
+                  thresh)
+    dev = ptsT.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the step runs on cuda or cpu tensors, not {dev}")
+
+    def two_launches() -> None:
+        assign_stats(ptsT, w, cur, cents, n, act, pmax, out=out)
+        step_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
+                    it, thresh, stall_lim, max_iters)
+
+    if dev.type == "cpu" or not fused:
+        return two_launches
+    B, d, n_max = ptsT.shape
+    k = cents.shape[1]
+    lib = load_library()
+    tickets = torch.zeros(B, dtype=torch.int32, device=dev)
+    what = f"kmeans_fused_step (B={B}, d={d}, n_max={n_max}, k={k})"
+    # the tensors stay alive in this tuple for as long as the callable does
+    held = (ptsT, w, cur, cents, n, act, cur, sums, moved_k, moved, best,
+            stall, it, thresh, tickets)
+    args = ([t.data_ptr() for t in held]
+            + [B, d, n_max, k, int(packed_path(pmax, k)), stall_lim,
+               max_iters, torch.cuda.current_stream(dev).cuda_stream])
+    launch = lib.kmeans_fused_step
+
+    def one_launch() -> None:
+        rc = launch(*args)
+        if rc != 0:
+            _raise_launch(lib, rc, what)
+        with _count_lock:
+            assign_stats.launches += 1
+
+    one_launch.held = held
+    return one_launch

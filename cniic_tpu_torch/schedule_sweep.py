@@ -1,5 +1,6 @@
 """K3's chunk size and D2's root-table width, swept on the card: the
-readings behind `approx_rle.CHUNK` and `hufdec.TABLE_BITS`.
+readings behind `approx_rle.CHUNK` and `hufdec.TABLE_BITS`; and what each of
+D1's two schedules puts on the card.
 
     python -m cniic_tpu_torch.schedule_sweep
 
@@ -8,6 +9,10 @@ readings behind `approx_rle.CHUNK` and `hufdec.TABLE_BITS`.
   time a call, each checked equal to the one-walker schedule's records.
 * D2's two passes on the first image's Hufman payload at K = 0 and 8 to 14:
   the walk's device time (and the root table's, K >= 1) a call.
+* D1 on the 8 images' Hufman id streams, one batched call: every kernel,
+  memset and copy a call of `bitpack.pack_words` puts on the card, by name,
+  with the one-pass schedule and with one thread a symbol (a gather, an
+  int64 cumsum and `pack_kernel`).
 
 Times are torch.profiler's kernel spans, means over 10 warm calls. Needs a
 CUDA card; prints one line per sweep and a JSON line at the end.
@@ -21,11 +26,13 @@ import subprocess
 import numpy as np
 import torch
 
+import re
+
 from . import hilbert, huffman, native
 from .bench import SEED, synth_image
 from .codecs.base import pixels_row_major
 from .kmeans_profile import _device_intervals
-from .ops import approx_rle, histogram, hufdec
+from .ops import approx_rle, bitpack, histogram, hufdec
 
 CHUNKS = (32, 64, 96, 128, 192, 256, 512, 1024)
 KS = (0, 8, 10, 11, 12, 13, 14)
@@ -94,6 +101,38 @@ def d2_sweep(img, dev) -> dict:
     return out
 
 
+def d1_split(imgs, dev, calls: int = 10) -> dict:
+    """{schedule: {name: device ms a call}} of everything D1's wrapper puts
+    on the card for the images' Hufman id streams in one batched call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stats = [histogram.color_histogram(pixels_row_major(im)) for im in imgs]
+    ids, freqs = [s[2] for s in stats], [s[1] for s in stats]
+    books = [huffman.build_codebook(f) for f in freqs]
+    arr_ids, codes, lens, totals = huffman.batch_arrays(ids, freqs, books)
+    ops = bitpack.operands(arr_ids, codes, lens, dev)
+    n_words = max((int(t) + 31) // 32 for t in totals)
+    out = {}
+    for label, one_pass in (("one thread a symbol", False), ("one pass", True)):
+        def fn(one_pass=one_pass):
+            bitpack.pack_words(*ops, n_words, one_pass=one_pass)
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for start, end, name in _device_intervals(prof):
+            name = re.sub(r"^void ", "", name.replace(
+                "(anonymous namespace)::", ""))
+            name = re.split(r"[<(]", name)[0].split("::")[-1]
+            split[name] = split.get(name, 0.0) + (end - start) / 1e3 / calls
+        out[label] = split
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("schedule_sweep needs a CUDA card")
@@ -111,8 +150,14 @@ def main() -> int:
     print("D2 on a 1024^2 Hufman payload, kernels alone (ms, pass 1 / pass "
           "2) by K: " + ", ".join(f"{K}: {a:.4f} / {b:.4f}"
                                   for K, (a, b) in d2.items()))
+    d1 = d1_split(imgs, dev)
+    for label, split in d1.items():
+        print(f"D1 at 8 x 1024^2 ids, {label}: everything a call puts on the "
+              "card (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                  split.items(), key=lambda kv: -kv[1])))
     print(json.dumps({"card": card, "k3_ms_by_chunk": k3,
-                      "d2_ms_by_K": {K: list(t) for K, t in d2.items()}}))
+                      "d2_ms_by_K": {K: list(t) for K, t in d2.items()},
+                      "d1_device_ms_by_schedule": d1}))
     return 0
 
 

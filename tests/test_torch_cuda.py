@@ -1,6 +1,8 @@
 """Card-only checks of the PyTorch port: K1 (packed and unpacked paths, both
-statistics branches), D3, K2, K3 (both schedules), D1 and D2 (with and
-without its root table) on the card against their plain versions, and the
+statistics branches), D3 (alone and in K1's last blocks, the loop's one
+launch an iteration), K2, K3 (both schedules), D1 (both schedules) and D2
+(with and without its root table) on the card against their plain versions,
+and the
 k-means engine and codecs, the gated Hilbert codecs and the gated Huffman
 codecs on the card against the CPU path.
 
@@ -70,6 +72,37 @@ def test_kernel_matches_plain_version(cuda, B, d, n, k, maxv, ties, frozen):
         assert torch.equal(g.cpu(), w_)
 
 
+def test_kernel_threads_share_an_instance_at_two_sizes(cuda):
+    """Two host threads launch one K1 instance (d = 5, packed, global
+    statistics) at k = 2048 and k = 4096 in turns: the instance's
+    shared-memory opt-in must never fall below what a launch in flight on
+    the other thread asked for."""
+    import threading
+
+    cases = []
+    for k in (2048, 4096):
+        ops = _operands(k, 1, 5, 6000, k, 256)
+        assert tkk.packed_path([255] * 5, k) and not tkk.stats_in_smem(5, k)
+        cases.append(([t.to(cuda) for t in ops], tkk.assign_stats_ref(*ops)))
+    errors = []
+
+    def worker(ops, want):
+        try:
+            for _ in range(50):
+                got = tkk.assign_stats(*ops, pmax=[255] * 5)
+                for g, w_ in zip(got, want):
+                    assert torch.equal(g.cpu(), w_)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=c) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+
+
 @pytest.mark.parametrize("d,pmax,k", [
     (5, [3839, 2159, 255, 255, 255], 128),  # 3840x2160 voronoi bound
     (2, [16383, 16383], 8),                 # d = 2 at the coordinate cap
@@ -124,11 +157,11 @@ def test_kernel_on_voronoi_points_matches_plain_version(cuda, k):
         # the next step from the plain version's state, means included
         sums, mv = want[1].clone(), want[2].clone()
         B = ops[0].shape[0]
-        state = torch.tensor([step, 1], dtype=torch.int64)
+        it = torch.full((B,), step, dtype=torch.int64)
         tkk.step_update_ref(sums, mv, ops[0], ops[4], ops[3],
                             torch.zeros(B, dtype=torch.int64),
                             torch.full((B,), 10**9, dtype=torch.int64),
-                            torch.zeros(B, dtype=torch.int64), ops[5], state,
+                            torch.zeros(B, dtype=torch.int64), ops[5], it,
                             torch.zeros(B, dtype=torch.int64), 64, 100)
         ops[2] = want[0]
 
@@ -152,7 +185,7 @@ def _d3_operands(seed, B=5, d=5, k=64, n_max=3000):
     return [torch.from_numpy(a) for a in (
         sums, rng.integers(0, 3000, B).astype(np.int32), ptsT, n,
         rng.integers(0, 1024, (B, k, d)).astype(np.int32), moved, best, stall,
-        act, np.array([2**31 + 7, 1], np.int64),
+        act, np.full(B, 2**31 + 7, np.int64),
         np.full(B, 2, np.int64))]
 
 
@@ -172,8 +205,108 @@ def test_d3_matches_plain_version(cuda, max_iters):
         assert tkk.step_update.launches == before + 1
         for g, w_ in zip(got, want):
             assert torch.equal(g.cpu(), w_)
-    assert int(want[9][0]) == (2**31 + 8 if max_iters == 2**31 + 8
-                               else 2**31 + 9)
+    assert int(want[9].max()) == (2**31 + 8 if max_iters == 2**31 + 8
+                                  else 2**31 + 9)
+    assert int(want[9][1]) == 2**31 + 7   # the frozen lane stopped counting
+
+
+def _fused_state(ops, dev, thresh=0):
+    """D3's per-lane operands at the start of a loop over K1's `ops`."""
+    ptsT, _, _, cents, n, _ = ops
+    B, d, _ = ptsT.shape
+    k = cents.shape[1]
+    i64 = dict(dtype=torch.int64, device=dev)
+    n64 = n.to(dev).to(torch.int64)
+    return [torch.zeros((B, k, d + 1), **i64),
+            torch.zeros(B, dtype=torch.int32, device=dev), n64 + 1, n64 + 1,
+            torch.zeros(B, **i64), torch.zeros(B, **i64),
+            torch.full((B,), thresh, **i64)]
+
+
+@pytest.mark.parametrize("B,d,n,k,maxv,pmax,steps", [
+    (8, 3, 46_000, 32, 256, None, 200),    # packed, shared-memory statistics
+    (4, 5, 262_144, 128, 1024, None, 40),  # voronoi-like: many blocks a lane
+    (2, 5, 8192, 2048, 1024, None, 200),   # packed, global statistics
+    (2, 5, 30_000, 128, 256, [3839, 2159, 255, 255, 255], 200),  # unpacked
+    (2, 2, 20_000, 4096, 16384, [16383, 16383], 100),  # unpacked, global
+])
+def test_fused_step_matches_plain_versions(cuda, B, d, n, k, maxv, pmax,
+                                           steps):
+    """The loop's one launch an iteration (K1, D3 in each lane's last
+    block) against K1's then D3's plain versions on the card, every tensor
+    after every step, over many steps: a missing fence between the blocks'
+    statistics and the last block's means would show as a wrong centroid.
+    One K1 launch a step, none of D3's own."""
+    ops = [t.to(cuda) for t in _operands(3, B, d, n, k, maxv, ties=True)]
+    if pmax is None:
+        pmax = [maxv - 1] * d
+    else:
+        assert not tkk.packed_path(pmax, k)
+    ptsT, w, cur, cents, ns, act = ops
+    state = _fused_state(ops, cuda, thresh=-1)   # no lane freezes
+    want = [t.clone() for t in (cur, cents, act, *state)]
+    step = tkk.prepare_step(*ops, pmax, *state, 1 << 40, 1 << 40)
+    before = (tkk.assign_stats.launches, tkk.step_update.launches)
+    valid = torch.arange(n, device=cuda)[None, :] < ns[:, None]
+    for i in range(steps):
+        step()
+        w_cur, w_cents, w_act, _, _, *rest = want
+        new, sums, mk = tkk.assign_stats_ref(ptsT, w, w_cur, w_cents, ns,
+                                             w_act)
+        w_cur.copy_(torch.where(valid, new, w_cur))
+        tkk.step_update_ref(sums, mk, ptsT, ns, w_cents, *rest[:3], w_act,
+                            *rest[3:], 1 << 40, 1 << 40)
+        for g, w_ in zip([cur, cents, act, *state[2:6]],
+                         [w_cur, w_cents, w_act, *rest[:4]]):
+            assert torch.equal(g, w_), i
+        assert not state[0].any() and not state[1].any(), i
+    assert (tkk.assign_stats.launches, tkk.step_update.launches) == (
+        before[0] + steps, before[1])
+    assert state[5].tolist() == [steps] * B
+
+
+def test_fused_step_freezes_lanes_like_two_launches(cuda):
+    """Lanes of unequal size that freeze at different iterations, a binding
+    max_iters, and launches after the end: one launch an iteration against
+    K1 then D3 as launches of their own, tensor for tensor."""
+    rng = np.random.default_rng(8)
+    sizes = (60, 30_000, 9000)
+    pts, w, ns = tkm.pad_lanes([rng.integers(0, 256, (m, 3)) for m in sizes],
+                               [None, rng.integers(1, 30, 30_000), None])
+    for max_iters in (10_000, 5):
+        runs = []
+        for fused in (True, False):
+            ptsT = torch.from_numpy(pts).to(cuda)
+            cur, cents = tkm._init_state(ptsT, ns, 16)
+            n32 = torch.tensor(ns, dtype=torch.int32, device=cuda)
+            act = torch.ones(3, dtype=torch.int32, device=cuda)
+            ops = [ptsT, torch.from_numpy(w).to(cuda), cur, cents, n32, act]
+            state = _fused_state(ops, cuda)
+            state[6] = torch.tensor([tkm._stop_threshold(m) for m in ns],
+                                    dtype=torch.int64, device=cuda)
+            step = tkk.prepare_step(*ops, [255] * 3, *state, 64, max_iters,
+                                    fused=fused)
+            before = (tkk.assign_stats.launches, tkk.step_update.launches)
+            trace = []
+            for _ in range(48):
+                step()
+                trace.append((state[5].tolist(), act.tolist()))
+            assert (tkk.assign_stats.launches - before[0],
+                    tkk.step_update.launches - before[1]) == (
+                48, 0 if fused else 48)
+            runs.append((trace, cur.cpu(), cents.cpu(),
+                         [t.cpu() for t in state]))
+        assert runs[0][0] == runs[1][0]
+        assert torch.equal(runs[0][1], runs[1][1])
+        assert torch.equal(runs[0][2], runs[1][2])
+        for a, b in zip(runs[0][3], runs[1][3]):
+            assert torch.equal(a, b)
+        counts = runs[0][0][-1][0]
+        assert not any(runs[0][0][-1][1])          # every lane froze
+        if max_iters == 5:
+            assert counts == [5, 5, 5] or counts[0] < 5
+        else:
+            assert len(set(counts)) > 1            # at different iterations
 
 
 def test_engine_loop_matches_cpu(cuda, monkeypatch):
@@ -234,6 +367,25 @@ def test_engine_and_codecs_match_cpu(cuda):
         for im, s in zip(imgs, streams):
             np.testing.assert_array_equal(
                 on_card.decode(s), from_spec(spec, device="cpu").decode(s))
+
+
+def test_voronoi128_4k_encode_hashes_to_the_fixture(cuda):
+    """The seed-42 3840x2160 image through voronoi(128) on the card (the
+    unpacked K1 path over 8.3M points a lane, D3 in its last blocks) gives
+    the committed stream `tests/fixtures/voronoi128_synth4k.bin`, and the
+    card's decode of it the pinned MSE."""
+    import hashlib
+    import test_torch_golden_4k as golden
+
+    img = golden.synth_natural(np.random.default_rng(42), 2160, 3840)
+    assert hashlib.sha256(img.tobytes()).hexdigest() == golden._IMG_SHA
+    codec = from_spec("voronoi(128)", device="cuda")
+    data = codec.encode(img)
+    with open(golden._FIX, "rb") as fh:
+        assert data == fh.read()
+    assert hashlib.sha256(data).hexdigest() == golden._STREAM_SHA
+    assert golden._mse(img, codec.decode(data)) == pytest.approx(
+        golden._MSE, abs=1e-4)
 
 
 def _rle_operands(scans, lens):
@@ -381,6 +533,77 @@ def test_d1_matches_plain_version(cuda, deep):
     for b, u in enumerate(us):
         assert out[b] == native.pack_bits(codes[b, :u], lens[b, :u],
                                           ids[b][ids[b] < u])
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("one_pass", [True, False])
+def test_d1_schedules_on_tile_edges(cuda, B, one_pass):
+    """Both schedules of D1 against the plain version and the C packer on
+    streams a few tiles long: lengths on, below and above the tile's
+    multiples (so rows start off a 16-byte boundary), 63-bit codes that
+    straddle tile edges, zero-length padding across a tile edge and over a
+    whole tile, an alphabet of more than 1024 entries (read through L2) and
+    smaller ones (copied to shared memory), and an n_words that cuts the
+    last tile."""
+    T = bitpack.TILE
+    assert bitpack.load_library().huf_pack_tile() == T
+    rng = np.random.default_rng(B)
+    for n, u, deep in ((3 * T, 300, False), (3 * T + 5, 64, True),
+                       (2 * T - 1, 5000, False), (T + 1, 2, False),
+                       (7, 40, False)):
+        freqs = [(2 ** np.arange(u, dtype=np.uint64) if deep
+                  else rng.integers(1, 5000, u).astype(np.uint64))
+                 for _ in range(B)]
+        books = [huffman.build_codebook(f) for f in freqs]
+        codes = np.zeros((B, u + 1), np.uint64)
+        lens = np.zeros((B, u + 1), np.uint32)
+        ids = rng.integers(0, u, (B, n)).astype(np.int32)
+        for b, book in enumerate(books):
+            codes[b, :u], lens[b, :u] = book.codes, book.lens
+        if n > T:
+            ids[0, T - 3:T + 3] = u          # padding across a tile edge
+        if n >= 3 * T:
+            ids[B - 1, T:2 * T] = u          # a whole tile of padding
+        ops = bitpack.operands(ids, codes, lens, torch.device("cpu"))
+        totals = np.take_along_axis(lens, ids, 1).astype(np.int64).sum(1)
+        full = int((totals.max() + 31) // 32)
+        for n_words in (full + 3, full, max(full - 40, 1)):
+            want = bitpack.pack_words_ref(*ops, n_words)
+            before = bitpack.pack_words.launches
+            got = bitpack.pack_words(*[t.to(cuda) for t in ops], n_words,
+                                     one_pass=one_pass)
+            torch.cuda.synchronize()
+            assert bitpack.pack_words.launches == before + 1
+            assert torch.equal(got.cpu(), want), (n, u, n_words)
+        words = got.cpu().numpy()   # the cut one: a prefix of the bytes
+        for b, book in enumerate(books):
+            real = ids[b][ids[b] < u]
+            packed = native.pack_bits(book.codes, book.lens, real)
+            mine = bitpack._words_to_bytes(words[b].view(np.uint32),
+                                           int(totals[b]))
+            assert mine == packed[:len(mine)]
+
+
+def test_d1_one_pass_at_full_size(cuda):
+    """8 streams of 1M ids (512 tiles a stream, more tiles than the card
+    holds at once, so the look-back crosses waves) against one thread a
+    symbol, repeated."""
+    rng = np.random.default_rng(4)
+    u, n = 40_000, 1 << 20
+    book = huffman.build_codebook(
+        (rng.pareto(1.2, u) * 50 + 1).astype(np.uint64))
+    ids = rng.integers(0, u, (8, n)).astype(np.int32)
+    ops = [t.to(cuda) for t in bitpack.operands(
+        ids, np.tile(book.codes, (8, 1)), np.tile(book.lens, (8, 1)),
+        torch.device("cpu"))]
+    n_words = int(book.lens.max()) * n // 32 + 1
+    want = bitpack.pack_words(*ops, n_words, one_pass=False)
+    for _ in range(20):
+        assert torch.equal(bitpack.pack_words(*ops, n_words), want)
+    assert native.pack_bits(book.codes, book.lens, ids[3]) == \
+        bitpack.pack_bits_batch(ids, np.tile(book.codes, (8, 1)),
+                                np.tile(book.lens, (8, 1)),
+                                device="cuda")[3]
 
 
 def _hufdec_stream(rng, freqs, n):

@@ -203,13 +203,13 @@ def test_kmeans_steal_matches(monkeypatch):
     steals = []
     real = tkk.step_update_ref
 
-    def spy(sums, moved_k, ptsT, n, cents, moved, best, stall, act, state,
+    def spy(sums, moved_k, ptsT, n, cents, moved, best, stall, act, it,
             *rest):
         d = ptsT.shape[1]
         if bool(((sums[:, :, d] == 0) & (act != 0)[:, None]).any()):
-            steals.append(int(state[0]))
+            steals.append(int(it.max()))
         return real(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                    state, *rest)
+                    it, *rest)
 
     monkeypatch.setattr(tkk, "step_update_ref", spy)
     rng = np.random.default_rng(263)
@@ -379,23 +379,28 @@ def _update_operands(seed=3, B=4, d=3, k=6, n_max=50):
         best=t(np.array([30, 12, 9, 50], np.int64)[:B]),
         stall=t(np.array([0, 63, 5, 2], np.int64)[:B]),
         act=t(np.array([1, 1, 0, 1], np.int32)[:B]),
-        state=t(np.array([2**20 + 5, 1], np.int64)),
+        # the frozen lane stopped counting seven iterations ago
+        it=t(np.array([2**20 + 5, 2**20 + 5, 2**20 - 2, 2**20 + 5],
+                      np.int64)[:B]),
         thresh=t(np.array([0, 0, 3, 45], np.int64)[:B]))
 
 
 def test_step_update_ref_matches_jax_pieces():
     """D3's plain version: truncated means, JAX's steal for the empty
     clusters, JAX's plateau bookkeeping on the active lanes, the freeze
-    rule, the iteration count and the zeroed statistics."""
+    rule, the lanes' iteration counts and the zeroed statistics; a frozen
+    lane keeps everything it has."""
     ops = _update_operands()
     before = {key: v.clone() for key, v in ops.items()}
     tkk.step_update(**ops, stall_lim=64, max_iters=2**21)
     d, k = ops["ptsT"].shape[1], ops["cents"].shape[1]
-    it = int(before["state"][0])
+    it = int(before["it"][0])
     act = before["act"].numpy() != 0
     for b in range(4):
         if not act[b]:
-            assert torch.equal(ops["cents"][b], before["cents"][b])
+            for key in ("cents", "sums", "moved_k", "it", "moved", "best",
+                        "stall", "act"):
+                assert torch.equal(ops[key][b], before[key][b]), key
             continue
         s = before["sums"][b].numpy()
         steal = np.asarray(jkm._steal_indices(k, jnp.int32(it),
@@ -413,8 +418,9 @@ def test_step_update_ref_matches_jax_pieces():
     np.testing.assert_array_equal(ops["moved"].numpy(), moved)
     live = (moved > before["thresh"].numpy()) & (np.asarray(js) < 64)
     np.testing.assert_array_equal(ops["act"].numpy(), live.astype(np.int32))
-    assert ops["state"].tolist() == [it + 1, int(live.any())]
-    assert not ops["sums"].any() and not ops["moved_k"].any()
+    np.testing.assert_array_equal(ops["it"].numpy(),
+                                  before["it"].numpy() + act)
+    assert not ops["sums"][act].any() and not ops["moved_k"][act].any()
     # lane 1 reached the stall limit; lane 3 fell to its threshold
     assert live.tolist() == [True, False, False, False]
 
@@ -423,9 +429,9 @@ def test_step_update_ref_binds_max_iters_and_idles():
     """At max_iters every lane freezes; with no lane active a step changes
     nothing, not even the iteration count."""
     ops = _update_operands()
-    it = int(ops["state"][0])
+    it = int(ops["it"][0])
     tkk.step_update(**ops, stall_lim=64, max_iters=it + 1)
-    assert ops["state"].tolist() == [it + 1, 0]
+    assert ops["it"].tolist() == [it + 1, it + 1, 2**20 - 2, it + 1]
     assert not ops["act"].any()
     frozen = {key: v.clone() for key, v in ops.items()}
     ops["sums"][0, 0, 0] = 7  # a frozen step's K1 adds nothing; D3 ignores it
@@ -442,7 +448,7 @@ def test_step_update_wrapper_rejects(bad):
     if bad == "dtype":
         ops["moved"], err = ops["moved"].to(torch.int32), TypeError
     elif bad == "shape":
-        ops["state"] = ops["state"][:1].contiguous()
+        ops["it"] = ops["it"][:1].contiguous()
     else:
         ops["thresh"] = ops["thresh"].to("meta")
     with pytest.raises(err):
