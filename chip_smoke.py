@@ -29,9 +29,15 @@ Phases:
    global-statistics branches; then its kernel alone against K1's alone and
    K1 then D3, beside the bound of K1 and D3 together, and what an
    iteration of the loop costs the host and the card with one launch and
-   with two. K2 on the chunked Hilbert scans the chunked route gives it: (a) a 1024^2 scan, 1024 chunks, allow 4; (b) the same at
-   allow 16; (c) the 2040x1356 scan, 1024 chunks of 2702, allow 4; (d)
-   crafted boundary ties at allow 2 (flags set); (e) allow 64. K3 (its
+   with two. K2 (its chunk schedule and one walker a stream, records and
+   flags) on the chunks the chunked route cuts from the Hilbert scans: (a)
+   a 1024^2 scan, 1024 chunks, allow 4; (b) the same at allow 16; (c) the
+   2040x1356 scan, 1024 chunks of 2702, allow 4; (d) crafted boundary ties
+   at allow 2 (flags set); (e) allow 64; (f) 1024 flat streams, whose
+   seams never sync; (g) flat streams with +-4 noise; with the repair
+   pass's sync share and the settle pass's re-walked positions, both
+   schedules in turns at (a), (c) and (f), and the kernels alone by the
+   profiler. K3 (its
    chunk schedule and one walker a stream) on 8 streams of 16384 pixels
    opening with crafted boundary runs at allow 4, 16 and 64; then the chunk
    schedule against one walker a stream at full size (the 8 suite scans,
@@ -50,7 +56,8 @@ Phases:
    kernel, plain), each beside its bound (the larger of its bytes over
    3.35 TB/s and its operations over the card's peak rate for their type)
    and roofline share, and the K2/K3 and D1/D2 routes against the C paths
-   (host clock);
+   (host clock), the K2 route split into its K2 calls, record extraction,
+   the stitcher's adoption and its native replays;
 4. the main paths through the normal entry points, each with the kernel
    counts set to 0 just before it and read just after: `runner.
    measure_all(from_spec(spec, device="cuda"), paths, batch=8)` over 8
@@ -66,8 +73,8 @@ Phases:
    hilbert(rle(4)) and hilbert(zip) with no gate (the host C runtime), then
    hilbert(rle(4)) under CNIIC_CHUNKED_RLE=1 (K2 must have launched and the
    streams must equal the ungated ones byte for byte) and under
-   CNIIC_PALLAS_RLE=1 (K3 must have launched: calls and kernel launches
-   are printed). (iii) hufman, delta,
+   CNIIC_PALLAS_RLE=1 (K3 must have launched; calls and kernel launches
+   of both are printed). (iii) hufman, delta,
    zip(dict) and zip(back) with no gate (the host C runtime), then hufman,
    delta and cluster-colors(32) under CNIIC_DEVICE_BITPACK=1 (D1 must have
    launched, the streams must equal the ungated ones) and under
@@ -321,19 +328,26 @@ def phase_build(rehearse: bool) -> None:
         rle = _ptxas_entries(fh.read())
     with open(_build.log_path(bitpack.NAME)) as fh:
         rle.update(_ptxas_entries(fh.read()))
+    # the chunk passes are one template each for K2 (WideState) and K3
+    # (BatchState)
     for label, key, count in (
             ("K2", "wide_kernel", 1), ("K3", "batch_kernel", 1),
-            ("K3", "speculate_kernel", 1), ("K3", "repair_kernel", 1),
-            ("K3", "settle_kernel", 1), ("D1", "pack_tiles_kernel", 2),
-            ("D1", "book_kernel", 1), ("D1", "pack_kernel", 1),
-            ("D2", "walk_kernel", 2), ("D2", "table_kernel", 1)):
+            ("K2 and K3", "speculate_kernel", 2),
+            ("K2 and K3", "repair_kernel", 2),
+            ("K2 and K3", "settle_kernel", 2), ("K2", "wide_flags_kernel", 1),
+            ("D1", "pack_tiles_kernel", 2), ("D1", "book_kernel", 1),
+            ("D1", "pack_kernel", 1), ("D2", "walk_kernel", 2),
+            ("D2", "table_kernel", 1)):
         found = sorted((n, v) for n, v in rle.items() if key in n)
         check(len(found) == count, f"ptxas reported {len(found)} {key} "
               f"entries, not {count}")
         for name, (regs, st, ld, smem) in found:
-            inst = re.search(r"ILb([01])E", name)
-            inst = f"<{'true' if inst.group(1) == '1' else 'false'}>" if inst \
-                else ""
+            if "WideState" in name or "BatchState" in name:
+                inst = "<K2>" if "WideState" in name else "<K3>"
+            else:
+                inst = re.search(r"ILb([01])E", name)
+                inst = (f"<{'true' if inst.group(1) == '1' else 'false'}>"
+                        if inst else "")
             print(f"  ptxas {label} ({key}{inst}): {regs} registers, {smem} B "
                   f"static smem, {st} B spill stores, {ld} B spill loads")
 
@@ -614,13 +628,6 @@ def _step_timings(key, k1_ops, pmax, k1_alone_ms, dev, card, sz):
             "loop_wall_us_two_launches": sum(c[1] for c in two) / 2}
 
 
-def _device_ms(fn, key: str, dev) -> float:
-    """The kernel's own device time (profiler); host time in a rehearsal."""
-    if dev.type != "cuda":
-        return _time_ms(fn, 2, dev, warmup=0)
-    return kmeans_profile.kernel_device_ms(fn, key)
-
-
 def phase_kernel(imgs, dev, card, sz):
     cases = {
         "a voronoi": kmeans_profile.voronoi_operands(imgs[:4], 128, dev),
@@ -719,7 +726,7 @@ def phase_kernel(imgs, dev, card, sz):
         k2 = _time_ms(kernel, sz["iters"], dev)
         p2 = _time_ms(plain, sz["iters"], dev)
         b_ms, b_by = k1_bound(ops)
-        dev_ms = _device_ms(kernel, "assign_stats_kernel", dev)
+        dev_ms = _kernels_ms(kernel, ("assign_stats_kernel",), dev)
         timings[key] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by, dev_ms)
         print(f"  time K1 without the update ({key}) on {card}: kernel "
               f"{k1 * 1e3:.1f} / "
@@ -744,7 +751,7 @@ def phase_kernel(imgs, dev, card, sz):
     k2 = _time_ms(kernel, sz["iters"], dev)
     p2 = _time_ms(plain, sz["iters"], dev)
     b_ms, b_by = d3_bound(ops)
-    dev_ms = _device_ms(kernel, "step_update_kernel", dev)
+    dev_ms = _kernels_ms(kernel, ("step_update_kernel",), dev)
     # the events see the host's enqueue rate (the wrapper's checks take
     # longer than the kernel), so D3's time is the kernel's own
     timings["D3"] = (dev_ms, (p1 + p2) / 2, b_ms, b_by, (k1 + k2) / 2)
@@ -767,17 +774,7 @@ def phase_kernel(imgs, dev, card, sz):
 def _chunks(scan):
     """The chunks approx_rle_chunked gives K2 for one scan: at most 1024
     chunks of 1024 pixels or more; (scans [S, chunk, 3], lens [S])."""
-    n = scan.shape[0]
-    chunk = 1024
-    n_chunks = -(-n // chunk)
-    if n_chunks > approx_rle.WIDE:
-        chunk = -(-n // approx_rle.WIDE)
-        n_chunks = -(-n // chunk)
-    padded = np.zeros((n_chunks * chunk, 3), np.uint8)
-    padded[:n] = scan
-    lens = np.full(n_chunks, chunk)
-    lens[-1] = n - (n_chunks - 1) * chunk
-    return padded.reshape(n_chunks, chunk, 3), lens
+    return approx_rle._wide_chunks(scan)[:2]
 
 
 def _run_then_pixel(c, t):
@@ -830,42 +827,155 @@ def _time_turns(kernel, plain, iters, dev):
     return (k1, k2), (p1, p2)
 
 
-def phase_rle_kernels(imgs, dev, card, sz):
-    print("phase 3 (cont.): K2 and K3 against their plain versions (exact "
-          "equality)")
-    scans = [hilbert.linearize(im) for im in imgs]
+def _k2_cases(scans):
+    """K2's phase-3 cases: (name, (chunks, lens), allow) on the chunks the
+    route cuts from the scans, plus flat and flat-plus-noise streams of the
+    1024^2 scan's shape."""
     full, div2k = _chunks(scans[0]), _chunks(scans[-1])
     tie = (full[0].copy(), full[1])
     tied = sorted({1, len(tie[1]) // 2, len(tie[1]) - 2})
     for j in tied:
         tie[0][j, :4] = TIE
-    cases = {"a 1024^2, allow 4": (full, 4), "b 1024^2, allow 16": (full, 16),
-             "c 2040x1356, allow 4": (div2k, 4), "d ties, allow 2": (tie, 2),
-             "e 1024^2, allow 64": (full, 64)}
-    k2_err = 0
+    rng = np.random.default_rng(13)
+    colours = rng.integers(0, 256, (full[0].shape[0], 1, 3))
+    flat = np.broadcast_to(colours, full[0].shape).astype(np.uint8)
+    noisy = np.clip(colours + rng.integers(-4, 5, full[0].shape), 0,
+                    255).astype(np.uint8)
+    return tied, {"a 1024^2, allow 4": (full, 4),
+                  "b 1024^2, allow 16": (full, 16),
+                  "c 2040x1356, allow 4": (div2k, 4),
+                  "d ties, allow 2": (tie, 2),
+                  "e 1024^2, allow 64": (full, 64),
+                  "f flat, allow 4": ((flat, full[1]), 4),
+                  "g flat + noise (+-4), allow 4": ((noisy, full[1]), 4)}
+
+
+def _k2_phase(scans, dev, card, sz):
+    """K2's chunk schedule and one walker against the plain version in every
+    case (rows and flags), the schedule's statistics, both schedules in
+    turns and the kernels alone."""
+    tied, cases = _k2_cases(scans)
+    chunk = approx_rle.WIDE_CHUNK
+    err_all, ops = 0, {}
     for name, ((chunks, lens), allow) in cases.items():
         rgb, ln = approx_rle._position_major(chunks, lens, dev)
         t0 = time.perf_counter()
         want = approx_rle.approx_rle_wide_ref(rgb, ln, allow)
         t_ref = time.perf_counter() - t0
-        got = approx_rle.wide_records(rgb, ln, allow)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        err = _rle_err(got, want)
-        k2_err = max(k2_err, err)
-        flags = got[1].cpu()
-        forced = int(((got[0].cpu() >> 25) & 1).sum())
-        print(f"  K2 ({name}) {chunks.shape[0]} streams x {chunks.shape[1]}: "
-              f"max |err| {err}, {int(flags.sum())} flagged, {forced} "
-              f"stream-end closes (plain version {t_ref:.2f} s)")
+        got, flags, seams, unsynced, walked = approx_rle.wide_records_stats(
+            rgb, ln, allow)
+        one = approx_rle.wide_records(rgb, ln, allow, chunk=rgb.shape[0])
+        _sync(dev)
+        err = _rle_err([got, flags, *one], [*want, *want])
+        err_all = max(err_all, err)
+        flags = flags.cpu()
+        forced = int(((got.cpu() >> 25) & 1).sum())
+        share = 1 - unsynced / seams if seams else 1.0
+        print(f"  K2 ({name}) {chunks.shape[0]} streams x {chunks.shape[1]}, "
+              f"chunks of {chunk} and one walker: max |err| {err}, "
+              f"{int(flags.sum())} flagged, {forced} stream-end closes; repair "
+              f"synced {seams - unsynced} of {seams} seams ({share:.4f}), "
+              f"settle re-walked {walked} positions "
+              f"({walked / rgb.numel():.4f} of them) (plain version "
+              f"{t_ref:.2f} s)")
         check(err == 0, f"K2 differs from its plain version in {name}")
-        if name.startswith("a"):
-            k2_timed = (rgb, ln, allow)
-            # about 40 integer operations a (stream, position) step
-            k2_bound = bound(_nbytes(rgb, ln, *got), 40.0 * rgb.numel())
         if name.startswith("d"):
             check(all(int(flags[j]) == 1 for j in tied),
                   "a crafted tie was not flagged")
+        ops[name[0]] = dict(rgb=rgb, ln=ln, allow=allow, seams=seams,
+                            unsynced=unsynced, walked=walked,
+                            # about 40 integer operations a (stream,
+                            # position) step
+                            bound=bound(_nbytes(rgb, ln, got, flags),
+                                        40.0 * rgb.numel()))
+    a = ops["a"]
+
+    def chunks_of(o):
+        return lambda: approx_rle.wide_records(o["rgb"], o["ln"], o["allow"])
+
+    def one_of(o):
+        return lambda: approx_rle.wide_records(o["rgb"], o["ln"], o["allow"],
+                                               chunk=o["rgb"].shape[0])
+
+    (k1, k2), (p1, p2) = _time_turns(
+        chunks_of(a), lambda: approx_rle.approx_rle_wide_ref(
+            a["rgb"], a["ln"], a["allow"]), sz["iters"], dev)
+    out = {"err": err_all, "plain_ms": (p1 + p2) / 2, "chunk": chunk,
+           "seams": a["seams"], "unsynced": a["unsynced"],
+           "rewalked": a["walked"], "bound": a["bound"]}
+    for key, label in (("a", "1024^2, allow 4"), ("c", "2040x1356, allow 4"),
+                       ("f", "flat, allow 4")):
+        o = ops[key]
+        (o1, o2), (c1, c2) = _pair_turns(one_of(o), chunks_of(o), sz["iters"],
+                                         dev)
+        print(f"  time K2 ({label}, {o['rgb'].shape[1]} x "
+              f"{o['rgb'].shape[0]}) on {card}: one walker {o1:.4f} / "
+              f"{o2:.4f} ms, chunks of {chunk} {c1:.4f} / {c2:.4f} ms a call "
+              f"(one, chunks, chunks, one), {(o1 + o2) / (c1 + c2):.2f}x")
+        if key == "a":
+            out["one_walker_ms"] = (o1 + o2) / 2
+    keys = ("speculate_kernel", "repair_kernel", "settle_kernel",
+            "wide_flags_kernel")
+    split = {k.split("_")[0] if k != keys[-1] else "flags": v for k, v in
+             _kernels_split(chunks_of(a), keys, dev).items()}
+    alone = sum(split.values())
+    one_alone = _kernels_ms(one_of(a), ("wide_kernel",), dev)
+    b_ms, b_by = a["bound"]
+    out["alone_ms"] = alone
+    print(f"  time K2 (1024^2, allow 4) on {card}: chunks {k1:.4f} / "
+          f"{k2:.4f} ms a call, plain version {p1:.1f} / {p2:.1f} ms (plain, "
+          f"kernel, kernel, plain); kernels alone (profiler) {alone:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"), one walker alone {one_alone:.4f} ms; bound "
+          f"{b_ms * 1e3:.3f} us ({b_by}), roofline share {b_ms / alone:.5f} "
+          f"(one walker {b_ms / one_alone:.5f})")
+    print(f"  K2 kernels alone (profiler) on {card}: 2040x1356 "
+          f"{_kernels_ms(chunks_of(ops['c']), keys, dev):.4f} ms, flat "
+          f"{_kernels_ms(chunks_of(ops['f']), keys, dev):.4f} ms")
+    return out
+
+
+def _route_split(scans, dev):
+    """approx_rle_chunked over the scans at allow 4 on the host clock, split
+    into the approx_rle_wide calls (upload, K2, download), `_runs` over the
+    chunks' columns, the stitcher's native replays and the rest (the chunk
+    packing and the stitcher's adoption). Times in ms."""
+    spent = {"wide": 0.0, "runs": 0.0, "native": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    saved = (approx_rle.approx_rle_wide, approx_rle._runs,
+             native.approx_rle_encode)
+    approx_rle.approx_rle_wide = timed("wide", saved[0])
+    approx_rle._runs = timed("runs", saved[1])
+    native.approx_rle_encode = timed("native", saved[2])
+    try:
+        t0 = time.perf_counter()
+        for sc in scans:
+            approx_rle.approx_rle_chunked(sc, 4, device=dev)
+        total = time.perf_counter() - t0
+    finally:
+        (approx_rle.approx_rle_wide, approx_rle._runs,
+         native.approx_rle_encode) = saved
+    ms = {k: v * 1e3 for k, v in spent.items()}
+    return {"total": total * 1e3, "wide call": ms["wide"] - ms["runs"],
+            "runs": ms["runs"], "adoption": (total * 1e3 - ms["wide"]
+                                             - ms["native"]),
+            "native replays": ms["native"]}
+
+
+def phase_rle_kernels(imgs, dev, card, sz):
+    print("phase 3 (cont.): K2 and K3 against their plain versions (exact "
+          "equality)")
+    scans = [hilbert.linearize(im) for im in imgs]
+    k2 = _k2_phase(scans, dev, card, sz)
 
     L = sz["k3_len"]
     rng = np.random.default_rng(7)
@@ -896,26 +1006,17 @@ def phase_rle_kernels(imgs, dev, card, sz):
             k3_bound = bound(_nbytes(rgb, ln, got), 30.0 * rgb.numel(),
                              F32_OPS_PER_S)
 
-    timings = {}
-    rgb, ln, allow = k2_timed
-    timings["K2"] = _time_turns(
-        lambda: approx_rle.wide_records(rgb, ln, allow),
-        lambda: approx_rle.approx_rle_wide_ref(rgb, ln, allow),
-        sz["iters"], dev)
     rgb3, ln3 = k3_timed
-    timings["K3"] = _time_turns(
+    (t1, t2), (p1, p2) = _time_turns(
         lambda: approx_rle.batch_records(rgb3, ln3, 4.0),
         lambda: approx_rle.approx_rle_batch_ref(rgb3, ln3, 4.0),
         sz["iters"], dev)
-    for name, shape, (b_ms, b_by) in (
-            ("K2", f"{rgb.shape[1]} x {rgb.shape[0]}", k2_bound),
-            ("K3", f"8 x {L}", k3_bound)):
-        (k1, k2), (p1, p2) = timings[name]
-        timings[name] = ((k1, k2), (p1, p2), b_ms, b_by)
-        print(f"  time {name} ({shape}) on {card}: kernel {k1:.4f} / "
-              f"{k2:.4f} ms per launch, plain version {p1:.1f} / {p2:.1f} ms "
-              f"(plain, kernel, kernel, plain); bound {b_ms * 1e3:.3f} us "
-              f"({b_by}), roofline share {2 * b_ms / (k1 + k2):.5f}")
+    b_ms, b_by = k3_bound
+    k3_timing = ((t1, t2), (p1, p2), b_ms, b_by)
+    print(f"  time K3 (8 x {L}) on {card}: kernel {t1:.4f} / {t2:.4f} ms per "
+          f"launch, plain version {p1:.1f} / {p2:.1f} ms (plain, kernel, "
+          f"kernel, plain); bound {b_ms * 1e3:.3f} us ({b_by}), roofline "
+          f"share {2 * b_ms / (t1 + t2):.5f}")
     one_16k = _pair_turns(
         lambda: approx_rle.batch_records(rgb3, ln3, 4.0, chunk=L),
         lambda: approx_rle.batch_records(rgb3, ln3, 4.0), sz["iters"], dev)
@@ -945,16 +1046,19 @@ def phase_rle_kernels(imgs, dev, card, sz):
     for j in range(8):
         approx_rle._runs(host[j])
     t_runs = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    for sc in scans[:8]:
-        approx_rle.approx_rle_chunked(sc, 4, device=dev)
-    t_chunked = (time.perf_counter() - t0) * 1e3
+    route = _route_split(scans[:8], dev)
     print(f"  8 scans of {big.shape[1]} px at allow 4: native engine "
           f"{t_native:.1f} ms, approx_rle_batch (K3 route) {t_batch:.1f} ms "
           f"(upload + K3 {t_kernel:.1f}, stream-major download "
           f"{t_down:.1f}, record extraction {t_runs:.1f}), "
-          f"approx_rle_chunked (K2 route) {t_chunked:.1f} ms")
-    return {"K2": (k2_err, timings["K2"]), "K3": (k3_err, timings["K3"]),
+          f"approx_rle_chunked (K2 route) {route['total']:.1f} ms")
+    print(f"  K2 route split (host clock, ms over the 8 scans): "
+          f"approx_rle_wide call (upload, K2, download) "
+          f"{route['wide call']:.1f}, _runs over the chunks' columns "
+          f"{route['runs']:.1f}, the stitcher's adoption (and chunk packing) "
+          f"{route['adoption']:.1f}, the stitcher's native replays "
+          f"{route['native replays']:.1f}")
+    return {"K2": k2, "K3": (k3_err, k3_timing),
             "K3 one-walker 8x16384 ms": sum(one_16k[0]) / 2,
             "K3 full": k3_full}
 
@@ -1157,27 +1261,45 @@ def _d2_case(name, stream, n, dev):
         _nbytes(pay, lr2, s1, e1, got[0], got[1]), 8.0 * walked), pass2
 
 
-def _kernels_ms(fn, keys, dev, calls: int = 10) -> float:
-    """Device ms a call of the kernels named by `keys` (one launch of each
-    a call), from torch.profiler: the sum over the keys of the mean span of
-    the kernels whose names hold the key (host time in a rehearsal)."""
+def _kernels_split(fn, keys, dev, calls: int = 10, tries: int = 3) -> dict:
+    """{key: device ms a call} of the kernels named by `keys` (one launch of
+    each a call), from a torch.profiler window: the mean span of the kernels
+    whose names hold the key. The window holds 20 ms of idle host time on
+    each side of the calls; one whose trace lacks a key is taken again, up
+    to `tries` windows, and the run fails if every window lacks it. In a
+    rehearsal (no card) nothing is measured: every key maps to NaN."""
     if dev.type != "cuda":
-        return _time_ms(fn, 1, dev, warmup=0)
+        fn()
+        return {key: math.nan for key in keys}
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ms = 0.0
-    events = kmeans_profile._device_intervals(prof)
-    for key in keys:
-        spans = [e - s for s, e, name in events if key in name]
-        check(spans, f"the profiler saw no kernel named *{key}*")
-        ms += sum(spans) / len(spans) / 1e3
-    return ms
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        events = kmeans_profile._device_intervals(prof)
+        spans = {key: [e - s for s, e, name in events if key in name]
+                 for key in keys}
+        missing = [key for key, v in spans.items() if not v]
+        if not missing:
+            return {key: sum(v) / len(v) / 1e3 for key, v in spans.items()}
+        print(f"  (profiler window {attempt} of {tries} holds no kernel "
+              f"named *{', '.join(missing)}*)")
+    raise SmokeFailure(f"the profiler saw no kernel named "
+                       f"*{', '.join(missing)}* in {tries} windows")
+
+
+def _kernels_ms(fn, keys, dev, calls: int = 10) -> float:
+    """Device ms a call of the kernels named by `keys`, summed
+    (`_kernels_split`); the host time of a call in a rehearsal."""
+    if dev.type != "cuda":
+        return _time_ms(fn, 1, dev, warmup=0)
+    return sum(_kernels_split(fn, keys, dev, calls).values())
 
 
 def _device_split(fn, dev, calls: int = 10) -> dict:
@@ -1467,22 +1589,19 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
 
     for spec in HILBERT_SPECS:
         runs[spec] = _measured(spec, paths, dev, card, out_dir)
-    for name, counter in (("K2", approx_rle.wide_records),
-                          ("K3", approx_rle.batch_records)):
+    for name, counter, chunk in (
+            ("K2", approx_rle.wide_records, approx_rle.WIDE_CHUNK),
+            ("K3", approx_rle.batch_records, approx_rle.CHUNK)):
         gate_name = GATES[0] if name == "K2" else GATES[1]
-        counter.launches = 0
-        approx_rle.batch_records.kernel_launches = 0
+        counter.launches = counter.kernel_launches = 0
         with gate(gate_name):
             runs[(GATED, gate_name)] = _measured(
                 GATED, paths, dev, card, f"{out_dir}_{gate_name.lower()}")
         launches[name] = counter.launches
-        if name == "K3":
-            launches["K3 kernels"] = approx_rle.batch_records.kernel_launches
+        launches[f"{name} kernels"] = counter.kernel_launches
         print(f"  {name} launches over {GATED} under {gate_name}=1: "
-              f"{launches[name]}" + (
-                  f" calls, {approx_rle.batch_records.kernel_launches} "
-                  f"kernel launches (chunks of {approx_rle.CHUNK})"
-                  if name == "K3" else ""))
+              f"{launches[name]} calls, {counter.kernel_launches} kernel "
+              f"launches (chunks of {chunk})")
     chunked = runs[(GATED, GATES[0])][2]["blobs"]
     check(chunked == runs[GATED][2]["blobs"],
           f"{GATED}: the chunked route's streams differ from the ungated ones")
@@ -1591,6 +1710,7 @@ def main() -> int:
     sz = SIZES[rehearse]
     dev, card = phase_device(rehearse)
     phase_build(rehearse)
+    kmeans_profile.keep_cupti()
 
     rng = np.random.default_rng(2024)
     imgs = [synth_image(rng, sz["side"], sz["side"]) for _ in range(8)]
@@ -1668,14 +1788,27 @@ def main() -> int:
             spec: {k: w[k] for k in ("wall_s", "busy_share", "k1_share",
                                      "kernels_per_iteration")}
             for spec, w in windows.items()}
-    for name, fn, replaces in (("K2", "approx_rle_wide", K2_REPLACES),
-                               ("K3", "approx_rle_batch", K3_REPLACES)):
-        err, (k_ms, p_ms, kb_ms, kb_by) = rle[name]
-        kernels.append({
-            "id": name, "name": fn, "route": "cuda", "source": RLE_SOURCE,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": sum(k_ms) / 2, "plain_ms": sum(p_ms) / 2,
-            "bound_ms": kb_ms, "bound_by": kb_by, "library_ms": None})
+    # K2's row: the chunk schedule the path launches, kernels alone by the
+    # profiler at (a), beside the one walker timed in turns
+    k2 = rle["K2"]
+    b_ms, b_by = k2["bound"]
+    kernels.append({
+        "id": "K2", "name": "approx_rle_wide_chunked", "route": "cuda",
+        "source": RLE_SOURCE, "replaces": K2_REPLACES,
+        "launches": launches["K2"], "kernel_launches": launches["K2 kernels"],
+        "max_abs_err": k2["err"], "ms": k2["alone_ms"],
+        "plain_ms": k2["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "roofline_share": b_ms / k2["alone_ms"],
+        "chunk": k2["chunk"], "one_walker_ms": k2["one_walker_ms"],
+        "seams": k2["seams"], "unsynced": k2["unsynced"],
+        "rewalked": k2["rewalked"]})
+    err, (k_ms, p_ms, kb_ms, kb_by) = rle["K3"]
+    kernels.append({
+        "id": "K3", "name": "approx_rle_batch", "route": "cuda",
+        "source": RLE_SOURCE, "replaces": K3_REPLACES,
+        "launches": launches["K3"], "max_abs_err": err, "ms": sum(k_ms) / 2,
+        "plain_ms": sum(p_ms) / 2, "bound_ms": kb_ms, "bound_by": kb_by,
+        "library_ms": None})
     full = rle["K3 full"]
     suite = full["8 x 1024^2 suite scans"]
     kernels[-1].update({

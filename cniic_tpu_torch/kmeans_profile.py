@@ -144,22 +144,13 @@ def k1_turns(cases, compares):
     return out
 
 
-def kernel_device_ms(fn, key: str, calls: int = 10) -> float:
-    """Mean device duration in ms of the kernels whose name holds `key`
-    over `calls` warm calls of `fn`, from torch.profiler: the kernel's own
-    time, whatever the host's enqueue rate."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e - s for s, e, name in _device_intervals(prof) if key in name]
-    if not spans:
-        raise RuntimeError(f"the profiler saw no kernel named *{key}*")
-    return sum(spans) / len(spans) / 1e3
+def keep_cupti() -> None:
+    """Keep CUPTI attached between torch.profiler windows. By default the
+    profiler tears CUPTI down after each window and re-attaches it lazily
+    in the next; windows have come back without kernels that ran in them,
+    and with CUPTI kept attached only the process's first window attaches
+    it. Call before the first window."""
+    os.environ["TEARDOWN_CUPTI"] = "0"
 
 
 def _device_intervals(prof):
@@ -271,6 +262,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kmeans_profile needs a CUDA card")
     dev = torch.device("cuda")
+    keep_cupti()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]

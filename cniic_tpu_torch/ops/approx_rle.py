@@ -13,7 +13,14 @@ note says what bounds them on the card.
   bit 24 (run ended at the previous position) and bit 25 (closed by the
   stream's end), and a per-stream flag on a boundary tie the exact
   arithmetic cannot decide as the reference's f64 does. Integer ``allow``
-  <= 64 only (the 16384 clamp keeps every decision only there).
+  <= 64 only (the 16384 clamp keeps every decision only there). On the card
+  it runs as speculative chunks of ``chunk`` positions with the seams
+  repaired on the card and the flags read from the settled rows (four
+  launches, ``approx_rle_wide_chunked`` in the source;
+  ``approx_rle_wide_chunked_ref`` models it on the CPU), or with ``chunk``
+  >= L one thread a stream (one launch); ``wide_records_stats`` also
+  reports how the seams synced. Its quotients are taken by the reciprocal
+  table ``RECIP``, not by integer division.
 * **K3**, ``batch_records`` (replaces ``cniic_tpu/ops/approx_rle.py::
   _kernel``): the same recurrence in the TPU kernel's f32 count²-scaled
   form, records ``1<<24 | rgb``, no flag. It may differ from the f64 engine
@@ -30,7 +37,7 @@ K2's ``flags`` int32 [S]). It checks its inputs, launches its kernel for
 CUDA tensors (raising if the launch fails) or runs its plain version
 (``approx_rle_wide_ref``, ``approx_rle_batch_ref``) for CPU tensors, and
 never moves from one to the other. ``<wrapper>.launches`` counts calls
-that launched (``batch_records.kernel_launches`` the kernels they launched).
+that launched (``<wrapper>.kernel_launches`` the kernels they launched).
 
 The entry points keep the JAX signatures and return values, with an explicit
 ``device`` in place of ``interpret``: ``approx_rle_batch`` (K3),
@@ -57,10 +64,20 @@ WIDE = 1024              # streams per K2 call (the chunk stitcher's bound)
 MAX_WIDE_ALLOW = 64      # K2's clamp keeps decisions only up to here
 MAX_BATCH_LEN = 1 << 24  # K3's f32 positions are exact up to here
 CHUNK = 128              # positions one K3 walker speculates (PERF.md)
+WIDE_CHUNK = 64          # positions one K2 walker speculates (PERF.md)
 RUN_CAP = 255
 ICL = 16384
 REC = 1 << 24            # a record: a run ended at the previous position
 LAST = 1 << 25           # K2: the run was closed by the stream's end
+TIE = 1 << 26            # K2's chunk walks: a tie at this row (cleared)
+
+# K2's quotients: floor(s / n) = (s * RECIP[n]) >> 32 for 0 <= s <= 65025
+# and 2 <= n <= 255, with RECIP[n] = ceil(2^32 / n) (exact: s * (RECIP[n]
+# * n - 2^32) <= 65025 * 254 < 2^32); n = 1 gives s itself. The kernel
+# builds the same table in shared memory.
+RECIP = np.array([0, 0] + [((1 << 32) - 1) // n + 1 for n in range(2, 256)],
+                 np.int64)
+_RECIP_T = torch.from_numpy(RECIP)
 
 _count_lock = threading.Lock()
 
@@ -83,6 +100,8 @@ def load_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.approx_rle_wide.argtypes = [vp] * 4 + [ci] * 3 + [vp]
     lib.approx_rle_wide.restype = ci
+    lib.approx_rle_wide_chunked.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    lib.approx_rle_wide_chunked.restype = ci
     lib.approx_rle_batch.argtypes = [vp] * 3 + [ci] * 2 + [ctypes.c_float, vp]
     lib.approx_rle_batch.restype = ci
     lib.approx_rle_batch_chunked.argtypes = ([vp] * 5 + [ci] * 3
@@ -121,35 +140,104 @@ def _raise_launch(lib, fn: str, rc: int, shape) -> None:
                        f"CUDA error {rc}: {msg}")
 
 
-def wide_records(rgb, lens, allow: int):
-    """K2 over position-major streams: (recs int32 [L+1, S], flags int32
-    [S]). `allow` must be an integer in [0, 64]."""
+def _check_chunk(chunk) -> int:
+    if int(chunk) != chunk or chunk < 1:
+        raise ValueError(f"chunk must be a positive integer, got {chunk!r}")
+    return int(chunk)
+
+
+def _check_wide(rgb, lens, allow, chunk):
+    """(allow, chunk) as ints, after K2's input checks."""
     _check(rgb, lens)
-    L, S = rgb.shape
+    S = rgb.shape[1]
     if S > WIDE:
         raise ValueError(f"K2 takes at most {WIDE} streams, got {S}")
     if int(allow) != allow or not 0 <= allow <= MAX_WIDE_ALLOW:
         raise ValueError(f"K2 needs an integer allow in [0, {MAX_WIDE_ALLOW}],"
                          f" got {allow!r}")
-    allow = int(allow)
-    if rgb.device.type == "cpu":
-        return approx_rle_wide_ref(rgb, lens, allow)
+    return int(allow), _check_chunk(chunk)
+
+
+def _launch_wide(rgb, lens, allow: int, chunk: int):
+    """K2 on the card: (recs, flags, unsynced-seam bitmaps int32 [S, nw] or
+    None, positions the settle pass walked int32 [S] or None)."""
+    L, S = rgb.shape
     lib = load_library()
     dev = rgb.device
     out = torch.empty((L + 1, S), dtype=torch.int32, device=dev)
     flags = torch.empty((S,), dtype=torch.int32, device=dev)
+    nk, nw = _chunks(L, chunk)
+    bits = walked = None
     with torch.cuda.device(dev):
-        rc = lib.approx_rle_wide(
-            rgb.data_ptr(), lens.data_ptr(), out.data_ptr(), flags.data_ptr(),
-            S, L, allow, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if nk == 1:
+            rc = lib.approx_rle_wide(rgb.data_ptr(), lens.data_ptr(),
+                                     out.data_ptr(), flags.data_ptr(), S, L,
+                                     allow, stream)
+            fn, kernels = "approx_rle_wide", 1
+        else:
+            scratch = torch.empty(S * nw + 10 * S * nk, dtype=torch.int32,
+                                  device=dev)
+            walked = torch.empty(S, dtype=torch.int32, device=dev)
+            rc = lib.approx_rle_wide_chunked(
+                rgb.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                flags.data_ptr(), scratch.data_ptr(), walked.data_ptr(), S, L,
+                chunk, allow, stream)
+            bits = scratch[: S * nw].view(S, nw)
+            fn, kernels = "approx_rle_wide_chunked", 4
     if rc != 0:
-        _raise_launch(lib, "approx_rle_wide", rc, rgb.shape)
+        _raise_launch(lib, fn, rc, rgb.shape)
     with _count_lock:
         wide_records.launches += 1
-    return out, flags
+        wide_records.kernel_launches += kernels
+    return out, flags, bits, walked
+
+
+def wide_records(rgb, lens, allow: int, chunk: int = WIDE_CHUNK):
+    """K2 over position-major streams: (recs int32 [L+1, S], flags int32
+    [S]). `allow` must be an integer in [0, 64]. On the card, `chunk` >= L
+    walks each stream with one thread (one launch); a smaller `chunk` runs
+    the speculative chunk schedule (four launches), whose records and
+    flags are the same. `wide_records.launches` counts calls,
+    `.kernel_launches` the kernels they launched."""
+    allow, chunk = _check_wide(rgb, lens, allow, chunk)
+    if rgb.device.type == "cpu":
+        return approx_rle_wide_ref(rgb, lens, allow)
+    return _launch_wide(rgb, lens, allow, chunk)[:2]
 
 
 wide_records.launches = 0
+wide_records.kernel_launches = 0
+
+
+def _seams(lens, chunk: int) -> int:
+    """Seams inside the streams: (len - 1) // chunk each."""
+    return int(((lens.cpu().to(torch.int64) - 1).clamp_min(0)
+                // chunk).sum())
+
+
+def _count_bits(bits) -> int:
+    return (0 if bits is None else
+            int(np.unpackbits(bits.cpu().numpy().view(np.uint8)).sum()))
+
+
+def wide_records_stats(rgb, lens, allow: int, chunk: int = WIDE_CHUNK):
+    """`wide_records` and what its chunk schedule did: (recs, flags, seams
+    inside the streams, seams whose repair did not sync, positions the
+    settle pass re-walked). CPU tensors run the plain model of the
+    schedule."""
+    allow, chunk = _check_wide(rgb, lens, allow, chunk)
+    if rgb.device.type == "cpu":
+        recs, flags, unsynced, walked = approx_rle_wide_chunked_ref(
+            rgb, lens, allow, chunk)
+        n_unsynced = int(unsynced.sum())
+    else:
+        recs, flags, bits, walked = _launch_wide(rgb, lens, allow, chunk)
+        n_unsynced = _count_bits(bits)
+    if _chunks(rgb.shape[0], chunk)[0] == 1:
+        return recs, flags, 0, 0, 0
+    return (recs, flags, _seams(lens, chunk), n_unsynced,
+            int(walked.to(torch.int64).sum()))
 
 
 def _check_batch(rgb, lens, chunk) -> None:
@@ -159,8 +247,7 @@ def _check_batch(rgb, lens, chunk) -> None:
         raise ValueError(
             f"K3 counts positions as the TPU kernel's f32 does, exact only up"
             f" to {MAX_BATCH_LEN} pixels; got streams of {L}")
-    if int(chunk) != chunk or chunk < 1:
-        raise ValueError(f"chunk must be a positive integer, got {chunk!r}")
+    _check_chunk(chunk)
 
 
 def _chunks(L: int, chunk: int):
@@ -235,13 +322,11 @@ def batch_records_stats(rgb, lens, allow: float, chunk: int = CHUNK):
         n_unsynced = int(unsynced.sum())
     else:
         recs, bits, walked = _launch_batch(rgb, lens, allow, chunk)
-        n_unsynced = (0 if bits is None else int(np.unpackbits(
-            bits.cpu().numpy().view(np.uint8)).sum()))
+        n_unsynced = _count_bits(bits)
     if _chunks(L, chunk)[0] == 1:
         return recs, 0, 0, 0
-    seams = int(((lens.cpu().to(torch.int64) - 1).clamp_min(0)
-                 // chunk).sum())
-    return recs, seams, n_unsynced, int(walked.to(torch.int64).sum())
+    return (recs, _seams(lens, chunk), n_unsynced,
+            int(walked.to(torch.int64).sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -366,33 +451,128 @@ def approx_rle_batch_chunked_ref(rgb, lens, allow: float, chunk: int):
     schedule."""
     L, B = rgb.shape
     dev = rgb.device
-    nk, _ = _chunks(L, chunk)
-    i64, f32 = torch.int64, torch.float32
-    if nk == 1:
+    if _chunks(L, chunk)[0] == 1:
         return (approx_rle_batch_ref(rgb, lens, allow),
                 torch.zeros((B, 1), dtype=torch.bool, device=dev),
-                torch.zeros(B, dtype=i64, device=dev))
-    lens = lens.to(i64)
+                torch.zeros(B, dtype=torch.int64, device=dev))
+    f32 = torch.float32
+    lens = lens.to(torch.int64)
     x_all = torch.cat([_channels(rgb).to(f32),
                        torch.zeros((1, 3, B), dtype=f32, device=dev)])
     allow_t = torch.tensor(allow, dtype=f32, device=dev)
-    out = torch.zeros((L + 1, B), dtype=torch.int32, device=dev)
+    return _chunk_schedule(
+        x_all, lens, chunk,
+        lambda s, c, pend, x, pos: _batch_step(s, c, pend, x, pos, lens,
+                                               allow_t))
+
+
+def _recip_quot(s, n):
+    """floor(s / n) as K2 takes it, (s * RECIP[n]) >> 32 and s itself at n
+    = 1, for int32 s in [0, 65025] and n in [1, 255] (broadcast; n = 0 gives
+    0)."""
+    m = _RECIP_T.to(n.device)[n.to(torch.int64)]
+    q = ((s.to(torch.int64) * m) >> 32).to(torch.int32)
+    return torch.where(n == 1, s, q)
+
+
+def _recip_round(s, n):
+    """round(s / n) half up through the reciprocal table."""
+    q = _recip_quot(s, n)
+    return q + (2 * (s - q * n) >= n).to(torch.int32)
+
+
+def _recip_exact(s, n):
+    """Whether s / n is exact in f64 (n divides 128 * (s mod n)), through
+    the reciprocal table as the kernel takes it: r7 = (s mod n) << 7 is
+    divisible when ((r7 * RECIP[n]) >> 32) * n == r7 (at n = 1, RECIP[1] =
+    0 and r7 = 0)."""
+    r7 = (s - _recip_quot(s, n) * n) << 7
+    m = _RECIP_T.to(n.device)[n.to(torch.int64)]
+    return ((r7.to(torch.int64) * m) >> 32) * n == r7
+
+
+def _wide_step(s, c, pend, x, pos, lens, allow: int):
+    """One step of K2's chunk walks on any lanes, in the kernel's
+    arithmetic: int32 sums s [3, *lanes], counts c and pend [*lanes], pixels
+    x [3, *lanes], positions and lengths broadcast to the lanes; quotients
+    through the reciprocal table, and a tie marks its row with TIE. Returns
+    (row, s, c, pend)."""
+    active = lens > pos
+    fresh = c == 0
+    t = (s - c * x).abs().clamp_max(ICL)
+    dist2 = (t * t).sum(0, dtype=torch.int32)
+    thresh = (allow * c) * (allow * c)
+    accept = ~fresh & (dist2 <= thresh)
+    live = active & ~fresh
+    row = torch.where(live & ~accept, REC | _pack3(_recip_round(s, c)), pend)
+    tie = live & (dist2 == thresh)
+    if bool(tie.any()):  # rare: the exactness test only where it is read
+        row = row | (tie & ~_recip_exact(s, c).all(0)).to(torch.int32) * TIE
+    ns = torch.where(accept, s + x, x)
+    nc = torch.where(accept, c + 1, 1)
+    capped = nc >= RUN_CAP
+    last = active & (lens - 1 <= pos)
+    close = active & (capped | last)
+    pend = torch.zeros_like(pend)
+    if bool(close.any()):
+        pend = torch.where(close, REC | (last & ~capped).to(torch.int32) * LAST
+                           | _pack3(_recip_round(ns, nc)), 0)
+    keep = active & ~close
+    return (row, torch.where(keep, ns, 0), torch.where(keep, nc, 0), pend)
+
+
+def approx_rle_wide_chunked_ref(rgb, lens, allow: int, chunk: int):
+    """A plain model of K2's chunk schedule (`approx_rle_wide_chunked` in
+    csrc/approx_rle.cu), for the tests and CPU rehearsals: K3's three passes
+    on K2's steps (`_wide_step`), then the flag pass: a stream's flag is the
+    OR of the TIE marks left in its settled rows, which are then cleared.
+    Returns (recs int32 [L+1, S], flags int32 [S], unsynced bool [S, nk],
+    walked int64 [S]). With one chunk (`chunk` >= L) it is the one-walker
+    schedule."""
+    L, S = rgb.shape
+    dev = rgb.device
+    if _chunks(L, chunk)[0] == 1:
+        recs, flags = approx_rle_wide_ref(rgb, lens, allow)
+        return (recs, flags, torch.zeros((S, 1), dtype=torch.bool, device=dev),
+                torch.zeros(S, dtype=torch.int64, device=dev))
+    lens = lens.to(torch.int64)
+    x_all = torch.cat([_channels(rgb),
+                       torch.zeros((1, 3, S), dtype=torch.int32, device=dev)])
+    rows, unsynced, walked = _chunk_schedule(
+        x_all, lens, chunk,
+        lambda s, c, pend, x, pos: _wide_step(s, c, pend, x, pos, lens,
+                                              allow))
+    flags = ((rows & TIE) != 0).any(0).to(torch.int32)
+    return rows & ~TIE, flags, unsynced, walked
+
+
+def _chunk_schedule(x_all, lens, chunk: int, step):
+    """The speculate, repair and settle passes of the card's chunk schedule
+    with the kernels' sync rules, vectorised over chunks and streams:
+    `x_all` [L+1, 3, S] holds the pixels (a zero row at L) in the state's
+    type, `lens` int64 [S], and `step(s, c, pend, x, pos)` takes one step
+    of the recurrence on any lanes. Returns (rows int32 [L+1, S], unsynced
+    bool [S, nk], walked int64 [S])."""
+    L, S = x_all.shape[0] - 1, x_all.shape[2]
+    dev = x_all.device
+    nk, _ = _chunks(L, chunk)
+    i64 = torch.int64
+    out = torch.zeros((L + 1, S), dtype=torch.int32, device=dev)
     p0 = torch.arange(nk, dtype=i64, device=dev) * chunk
 
-    def fresh(n):
-        return (torch.zeros((3, n, B), dtype=f32, device=dev),
-                torch.zeros((n, B), dtype=f32, device=dev),
-                torch.zeros((n, B), dtype=torch.int32, device=dev))
+    def record(row):
+        return (row & REC) != 0
 
     # pass 1: each (chunk, stream) from a fresh state, the true lengths
-    s, c, pend = fresh(nk)
+    s = torch.zeros((3, nk, S), dtype=x_all.dtype, device=dev)
+    c = torch.zeros((nk, S), dtype=x_all.dtype, device=dev)
+    pend = torch.zeros((nk, S), dtype=torch.int32, device=dev)
     for t in range(chunk):
         pos = p0 + t
         live = pos <= L
         pc = pos.clamp(max=L)
         x = x_all[pc].permute(1, 0, 2)
-        row, ns, nc, npend = _batch_step(s, c, pend, x, pos[:, None], lens,
-                                         allow_t)
+        row, ns, nc, npend = step(s, c, pend, x, pos[:, None])
         out[pos[live]] = row[live]
         s = torch.where(live[:, None], ns, s)
         c, pend = torch.where(live[:, None], nc, c), torch.where(
@@ -402,7 +582,7 @@ def approx_rle_batch_chunked_ref(rgb, lens, allow: float, chunk: int):
     # pass 2: seam k re-walks chunk k from chunk k-1's exit until both walks
     # start a run at one position (or are past the stream's end)
     s, c, pend = spec[0][:, :-1], spec[1][:-1], spec[2][:-1]
-    done = torch.zeros((nk - 1, B), dtype=torch.bool, device=dev)
+    done = torch.zeros((nk - 1, S), dtype=torch.bool, device=dev)
     for t in range(chunk):
         pos = p0[1:] + t
         live = pos <= L
@@ -410,32 +590,32 @@ def approx_rle_batch_chunked_ref(rgb, lens, allow: float, chunk: int):
         act = ~done & live[:, None]
         old = out[pc]
         x = x_all[pc].permute(1, 0, 2)
-        row, ns, nc, npend = _batch_step(s, c, pend, x, pos[:, None], lens,
-                                         allow_t)
+        row, ns, nc, npend = step(s, c, pend, x, pos[:, None])
         out[pos[live]] = torch.where(act, row, old)[live]
-        sync = act & ((pos[:, None] >= lens) | ((row != 0) & (
-            (old != 0) | (t == 0))))
+        sync = act & ((pos[:, None] >= lens) | (record(row) & (
+            record(old) | (t == 0))))
         s = torch.where(act, ns, s)
         c, pend = torch.where(act, nc, c), torch.where(act, npend, pend)
         done |= sync
     rep = (s, c, pend)
-    unsynced = torch.cat([torch.zeros((1, B), dtype=torch.bool, device=dev),
+    unsynced = torch.cat([torch.zeros((1, S), dtype=torch.bool, device=dev),
                           ~done]).t().contiguous()
 
-    # pass 3: per stream, the true state across the seams; a stream does one
-    # action an iteration (jump to the next unsynced seam, compare, or one
-    # position of a re-walk)
+    # pass 3: per stream, the true state across the seams; where it differs
+    # from the state a seam's repair started from, it walks the whole chunk.
+    # A stream does one action an iteration (jump to the next unsynced seam,
+    # compare, or one position of a walk)
     seam = torch.arange(nk, dtype=i64, device=dev)
     nxt = torch.where(unsynced, seam, nk).flip(1).cummin(1).values.flip(1)
-    nxt = torch.cat([nxt, torch.full((B, 1), nk, dtype=i64, device=dev)], 1)
-    cols = torch.arange(B, device=dev)
+    nxt = torch.cat([nxt, torch.full((S, 1), nk, dtype=i64, device=dev)], 1)
+    cols = torch.arange(S, device=dev)
     s, c, pend = spec[0][:, 0].clone(), spec[1][0].clone(), spec[2][0].clone()
-    k = torch.ones(B, dtype=i64, device=dev)
-    eq = torch.ones(B, dtype=torch.bool, device=dev)
-    walking = torch.zeros(B, dtype=torch.bool, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    pos = torch.zeros(B, dtype=i64, device=dev)
-    walked = torch.zeros(B, dtype=i64, device=dev)
+    k = torch.ones(S, dtype=i64, device=dev)
+    eq = torch.ones(S, dtype=torch.bool, device=dev)
+    walking = torch.zeros(S, dtype=torch.bool, device=dev)
+    done = torch.zeros(S, dtype=torch.bool, device=dev)
+    pos = torch.zeros(S, dtype=i64, device=dev)
+    walked = torch.zeros(S, dtype=i64, device=dev)
     while True:
         done |= ~eq & ~walking & (k >= nk)
         if bool(done.all()):
@@ -448,35 +628,34 @@ def approx_rle_batch_chunked_ref(rgb, lens, allow: float, chunk: int):
         kk = nxt[cols, k.clamp(max=nk)]
         done |= jump & (kk >= nk)
         go = jump & (kk < nk)
-        ri = (kk - 1).clamp(0, nk - 2)  # rep holds seams 1..nk-1
-        s = torch.where(go, rep[0][:, ri, cols], s)
-        c = torch.where(go, rep[1][ri, cols], c)
-        pend = torch.where(go, rep[2][ri, cols], pend)
-        k = torch.where(go, kk + 1, k)
-        eq = eq & ~go
-        # compare with the state seam k's repair started from
-        kp = (k - 1).clamp(0, nk - 1)
-        same = ((s == spec[0][:, kp, cols]).all(0) & (c == spec[1][kp, cols])
-                & (pend == spec[2][kp, cols]))
-        eq = eq | (comp & same)
-        start = comp & ~same
-        walking = walking | start
-        pos = torch.where(start, k * chunk, pos)
-        # one position of a re-walk against the rows there
-        pc = pos.clamp(max=L)
-        old = out[pc, cols]
-        row, ns, nc, npend = _batch_step(s, c, pend, x_all[pc, :, cols].t(),
-                                         pos, lens, allow_t)
-        out[pc[wk], cols[wk]] = row[wk]
-        walked += wk.to(i64)
-        s = torch.where(wk, ns, s)
-        c, pend = torch.where(wk, nc, c), torch.where(wk, npend, pend)
-        sync = wk & ((pos >= lens) | ((row != 0) & (old != 0)))
-        end = wk & ~sync & (pos + 1 >= torch.clamp((k + 1) * chunk, max=L + 1))
-        eq = eq | sync
-        walking = walking & ~sync & ~end
-        k = torch.where(end, k + 1, k)
-        pos = torch.where(wk & ~sync & ~end, pos + 1, pos)
+        if bool(go.any()):
+            ri = (kk - 1).clamp(0, nk - 2)  # rep holds seams 1..nk-1
+            s = torch.where(go, rep[0][:, ri, cols], s)
+            c = torch.where(go, rep[1][ri, cols], c)
+            pend = torch.where(go, rep[2][ri, cols], pend)
+            k = torch.where(go, kk + 1, k)
+            eq = eq & ~go
+        if bool(comp.any()):
+            # compare with the state seam k's repair started from
+            kp = (k - 1).clamp(0, nk - 1)
+            same = ((s == spec[0][:, kp, cols]).all(0)
+                    & (c == spec[1][kp, cols]) & (pend == spec[2][kp, cols]))
+            eq = eq | (comp & same)
+            start = comp & ~same
+            walking = walking | start
+            pos = torch.where(start, k * chunk, pos)
+        if bool(wk.any()):
+            # one position of a walk of the whole chunk
+            pc = pos.clamp(max=L)
+            row, ns, nc, npend = step(s, c, pend, x_all[pc, :, cols].t(), pos)
+            out[pc[wk], cols[wk]] = row[wk]
+            walked += wk.to(i64)
+            s = torch.where(wk, ns, s)
+            c, pend = torch.where(wk, nc, c), torch.where(wk, npend, pend)
+            end = wk & (pos + 1 >= torch.clamp((k + 1) * chunk, max=L + 1))
+            walking = walking & ~end
+            k = torch.where(end, k + 1, k)
+            pos = torch.where(wk & ~end, pos + 1, pos)
     return out, unsynced, walked
 
 
@@ -570,6 +749,23 @@ def approx_rle_wide(scans, lengths, allow: float, device="cuda"):
     return out
 
 
+def _wide_chunks(scan, chunk: int = 1024):
+    """The chunks `approx_rle_chunked` gives K2 for one scan of n >= 1
+    pixels: (scans uint8 [n_chunks, chunk, 3] zero-padded, lens int64
+    [n_chunks], chunk), at most WIDE chunks (`chunk` grows when n > WIDE *
+    chunk)."""
+    n = scan.shape[0]
+    n_chunks = -(-n // chunk)
+    if n_chunks > WIDE:
+        chunk = -(-n // WIDE)
+        n_chunks = -(-n // chunk)
+    scans = np.zeros((n_chunks * chunk, 3), np.uint8)
+    scans[:n] = scan
+    lens = np.full(n_chunks, chunk, np.int64)
+    lens[-1] = n - (n_chunks - 1) * chunk
+    return scans.reshape(n_chunks, chunk, 3), lens, chunk
+
+
 def approx_rle_chunked(scan: np.ndarray, allow: float, chunk: int = 1024,
                        device="cuda"):
     """Byte-exact approx-RLE of ONE stream via ~1024 speculative chunks.
@@ -592,17 +788,8 @@ def approx_rle_chunked(scan: np.ndarray, allow: float, chunk: int = 1024,
         # outside K2's exact-decision envelope (see approx_rle_wide): the
         # native engine IS the byte-exact answer
         return native.approx_rle_encode(scan, allow)
-    n_chunks = -(-n // chunk)
-    if n_chunks > WIDE:
-        chunk = -(-n // WIDE)
-        n_chunks = -(-n // chunk)
-    L = chunk
-    scans = np.zeros((n_chunks, L, 3), np.uint8)
-    lens = np.empty(n_chunks, np.int64)
-    for j in range(n_chunks):
-        part = scan[j * chunk : (j + 1) * chunk]
-        scans[j, : part.shape[0]] = part
-        lens[j] = part.shape[0]
+    scans, lens, chunk = _wide_chunks(scan, chunk)
+    n_chunks = lens.size
     spec = approx_rle_wide(scans, lens, allow, device=device)
 
     # per-chunk absolute run-start positions (sync points) and record lists

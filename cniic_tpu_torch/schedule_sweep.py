@@ -1,12 +1,18 @@
-"""K3's chunk size and D2's root-table width, swept on the card: the
-readings behind `approx_rle.CHUNK` and `hufdec.TABLE_BITS`; and what each of
-D1's two schedules puts on the card.
+"""K2's and K3's chunk sizes and D2's root-table width, swept on the card:
+the readings behind `approx_rle.WIDE_CHUNK`, `approx_rle.CHUNK` and
+`hufdec.TABLE_BITS`; and what each of D1's two schedules puts on the card.
 
     python -m cniic_tpu_torch.schedule_sweep
 
-* K3 over the Hilbert scans of 8 of `bench.synth_image`'s 1024^2 images
-  (seed 2024) at allow 4, chunks of 32 to 1024: the three kernels' device
-  time a call, each checked equal to the one-walker schedule's records.
+* K2 over the 1024 chunks of 1024 pixels the chunked route cuts from each
+  of the Hilbert scans of 8 of `bench.synth_image`'s 1024^2 images (seed
+  2024), at allow 4, sub-chunks of 16 to 256 and one walker a stream: the
+  four kernels' device time a call (the one walker's kernel), a mean over
+  the 8 scans, each call checked equal to the one walker's records and
+  flags.
+* K3 over the same scans whole, 8 streams at allow 4, chunks of 32 to 1024:
+  the three kernels' device time a call, each checked equal to the
+  one-walker schedule's records.
 * D2's two passes on the first image's Hufman payload at K = 0 and 8 to 14:
   the walk's device time (and the root table's, K >= 1) a call.
 * D1 on the 8 images' Hufman id streams, one batched call: every kernel,
@@ -31,11 +37,14 @@ import re
 from . import hilbert, huffman, native
 from .bench import SEED, synth_image
 from .codecs.base import pixels_row_major
-from .kmeans_profile import _device_intervals
+from .kmeans_profile import _device_intervals, keep_cupti
 from .ops import approx_rle, bitpack, histogram, hufdec
 
+WIDE_CHUNKS = (16, 24, 32, 48, 64, 96, 128, 256)
 CHUNKS = (32, 64, 96, 128, 192, 256, 512, 1024)
 KS = (0, 8, 10, 11, 12, 13, 14)
+K2_KERNELS = ("speculate_kernel", "repair_kernel", "settle_kernel",
+              "wide_flags_kernel")
 K3_KERNELS = ("speculate_kernel", "repair_kernel", "settle_kernel")
 
 
@@ -58,6 +67,30 @@ def device_ms(fn, keys, calls: int = 10) -> float:
             raise RuntimeError(f"the profiler saw no kernel named *{key}*")
         ms += sum(spans) / len(spans) / 1e3
     return ms
+
+
+def k2_sweep(imgs, dev) -> dict:
+    """{sub-chunk or "one walker": device ms} of K2 over each image's route
+    chunks, a mean over the images."""
+    ops = []
+    for im in imgs:
+        scans, lens, _ = approx_rle._wide_chunks(hilbert.linearize(im))
+        rgb, ln = approx_rle._position_major(scans, lens, dev)
+        ops.append((rgb, ln, approx_rle.wide_records(rgb, ln, 4,
+                                                     chunk=rgb.shape[0])))
+    out = {}
+    for chunk in WIDE_CHUNKS + (None,):
+        ms = 0.0
+        for rgb, ln, want in ops:
+            c = rgb.shape[0] if chunk is None else chunk
+            got = approx_rle.wide_records(rgb, ln, 4, chunk=c)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"K2 at sub-chunk {chunk} differs from "
+                                   "one walker")
+            ms += device_ms(lambda: approx_rle.wide_records(  # noqa: B023
+                rgb, ln, 4, chunk=c), K2_KERNELS if chunk else ("wide_kernel",))
+        out[chunk or "one walker"] = ms / len(ops)
+    return out
 
 
 def k3_sweep(imgs, dev) -> dict:
@@ -137,12 +170,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("schedule_sweep needs a CUDA card")
     dev = torch.device("cuda")
+    keep_cupti()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     rng = np.random.default_rng(SEED)
     imgs = [synth_image(rng, 1024, 1024) for _ in range(8)]
+    k2 = k2_sweep(imgs, dev)
+    print("K2 at 1024 streams x 1024 (the route's chunks of a 1024^2 scan), "
+          "kernels alone (ms) by sub-chunk: "
+          + ", ".join(f"{c}: {t:.4f}" for c, t in k2.items()))
     k3 = k3_sweep(imgs, dev)
     print("K3 at 8 x 1024^2, kernels alone (ms) by chunk: "
           + ", ".join(f"{c}: {t:.4f}" for c, t in k3.items()))
@@ -155,7 +193,8 @@ def main() -> int:
         print(f"D1 at 8 x 1024^2 ids, {label}: everything a call puts on the "
               "card (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
                   split.items(), key=lambda kv: -kv[1])))
-    print(json.dumps({"card": card, "k3_ms_by_chunk": k3,
+    print(json.dumps({"card": card, "k2_ms_by_chunk": k2,
+                      "k3_ms_by_chunk": k3,
                       "d2_ms_by_K": {K: list(t) for K, t in d2.items()},
                       "d1_device_ms_by_schedule": d1}))
     return 0

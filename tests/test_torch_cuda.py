@@ -1,10 +1,9 @@
 """Card-only checks of the PyTorch port: K1 (packed and unpacked paths, both
 statistics branches), D3 (alone and in K1's last blocks, the loop's one
-launch an iteration), K2, K3 (both schedules), D1 (both schedules) and D2
-(with and without its root table) on the card against their plain versions,
-and the
-k-means engine and codecs, the gated Hilbert codecs and the gated Huffman
-codecs on the card against the CPU path.
+launch an iteration), K2 and K3 (both schedules each), D1 (both schedules)
+and D2 (with and without its root table) on the card against their plain
+versions, and the k-means engine and codecs, the gated Hilbert codecs and
+the gated Huffman codecs on the card against the CPU path.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -23,7 +22,7 @@ from cniic_tpu_torch.ops import approx_rle as trle
 from cniic_tpu_torch.ops import bitpack, hufdec
 from cniic_tpu_torch.ops import kmeans as tkm
 from cniic_tpu_torch.ops import kmeans_kernel as tkk
-from torch_rle_cases import TIE, fma_batch, make_batch, seam_batch
+from torch_rle_cases import TIE, fma_batch, make_batch, seam_batch, tie_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -459,6 +458,100 @@ def test_k3_chunk_schedule_matches_plain_version(cuda, chunk):
     on_cpu = trle.batch_records_stats(rgb, ln, 2.0, chunk)
     assert torch.equal(on_card[0].cpu(), on_cpu[0])
     assert on_card[1:] == on_cpu[1:]
+
+
+def _walks(rng, S, L):
+    """S random-walk streams of L pixels, [S, L, 3] uint8."""
+    return np.clip(rng.integers(0, 256, (S, 1, 3))
+                   + rng.integers(-3, 4, (S, L, 3)).cumsum(1), 0,
+                   255).astype(np.uint8)
+
+
+def _edge_batch(chunk, rng):
+    """Walks ending at K2's chunk edges: lengths kC - 1, kC and kC + 1 for
+    k = 1, 2, 3, and 0."""
+    lens = np.array([k * chunk + d for k in (1, 2, 3) for d in (-1, 0, 1)]
+                    + [0])
+    return _walks(rng, len(lens), int(lens.max()) + 5), lens
+
+
+def _k2_both_schedules(rgb, ln, allow, chunk, cuda):
+    """K2's chunk schedule and one walker on the card, each equal to the
+    plain version in rows and flags, with the launch counts; returns the
+    plain version's (recs, flags)."""
+    want = trle.approx_rle_wide_ref(rgb, ln, allow)
+    before = (trle.wide_records.launches, trle.wide_records.kernel_launches)
+    got = trle.wide_records(rgb.to(cuda), ln.to(cuda), allow, chunk=chunk)
+    one = trle.wide_records(rgb.to(cuda), ln.to(cuda), allow,
+                            chunk=rgb.shape[0])
+    torch.cuda.synchronize()
+    chunked = chunk < rgb.shape[0]
+    assert (trle.wide_records.launches,
+            trle.wide_records.kernel_launches) == (
+        before[0] + 2, before[1] + (4 if chunked else 1) + 1)
+    for g, o, w in zip(got, one, want):
+        assert g.is_cuda
+        assert torch.equal(g.cpu(), w), (allow, chunk)
+        assert torch.equal(o.cpu(), w), (allow, chunk)
+    return want
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 7, 32, 64, 1024])
+def test_k2_chunk_schedule_matches_plain_version(cuda, chunk):
+    """The four-pass schedule against the plain version and against the one
+    walker (chunk >= L) on the card, rows and flags: the suite's batch, the
+    seam streams (a flat stream that never syncs, an edge, a cap close at a
+    seam), streams ending at the chunk edges, and the crafted ties: (i) met
+    only by the true walk in a re-walked region flags, (ii) met only by a
+    speculative walk does not. The schedule's statistics equal the CPU
+    model's."""
+    cases = [(make_batch(np.random.default_rng(3)), 4),
+             (make_batch(np.random.default_rng(4)), 64),
+             (seam_batch(chunk, np.random.default_rng(9)), 2),
+             (seam_batch(chunk, np.random.default_rng(10)), 16),
+             (_edge_batch(chunk, np.random.default_rng(11)), 4),
+             (_edge_batch(chunk, np.random.default_rng(12)), 0)]
+    for (scans, lens), allow in cases:
+        _k2_both_schedules(*_rle_operands(scans, lens), allow, chunk, cuda)
+    rgb, ln = _rle_operands(*tie_batch(np.random.default_rng(2)))
+    _, flags = _k2_both_schedules(rgb, ln, 2, chunk, cuda)
+    assert flags.tolist() == [1, 0, 1, 0]
+    rgb, ln = _rle_operands(*seam_batch(chunk, np.random.default_rng(9)))
+    on_card = trle.wide_records_stats(rgb.to(cuda), ln.to(cuda), 2, chunk)
+    on_cpu = trle.wide_records_stats(rgb, ln, 2, chunk)
+    assert torch.equal(on_card[0].cpu(), on_cpu[0])
+    assert torch.equal(on_card[1].cpu(), on_cpu[1])
+    assert on_card[2:] == on_cpu[2:]
+
+
+@pytest.mark.parametrize("L", [1024, 2702])
+def test_k2_chunk_schedule_at_full_width(cuda, L):
+    """1024 streams of L pixels (the chunked route's shapes for a 1024^2
+    and a 2040x1356 scan): walks with crafted ties (allow 2, flagged) and
+    at allow 4, and 1024 flat streams, the worst case, whose seams never
+    sync and whose every stream the settle pass walks."""
+    rng = np.random.default_rng(L)
+    scans = _walks(rng, 1024, L)
+    for j in range(0, 1024, 37):
+        p = int(rng.integers(0, L - 4))
+        scans[j, p:p + 4] = TIE
+    lens = np.full(1024, L)
+    lens[-1] = L - 333
+    rgb, ln = _rle_operands(scans, lens)
+    _, flags = _k2_both_schedules(rgb, ln, 2, trle.WIDE_CHUNK, cuda)
+    assert int(flags.sum()) > 0
+    _k2_both_schedules(rgb, ln, 4, trle.WIDE_CHUNK, cuda)
+    flat = np.broadcast_to(rng.integers(0, 256, (1024, 1, 3)),
+                           (1024, L, 3)).astype(np.uint8)
+    rgb, ln = _rle_operands(flat, lens)
+    _k2_both_schedules(rgb, ln, 4, trle.WIDE_CHUNK, cuda)
+    _, _, seams, unsynced, walked = trle.wide_records_stats(
+        rgb.to(cuda), ln.to(cuda), 4)
+    # only a seam whose chunk holds its stream's end syncs (past the end);
+    # chunk 1's repair starts from the truth, so the settle pass walks every
+    # chunk from the second on
+    assert 0 < seams - 1024 <= unsynced <= seams
+    assert walked >= int((ln.to(torch.int64) - 2 * trle.WIDE_CHUNK).sum())
 
 
 def test_rle_wrappers_refuse_before_launch(cuda):

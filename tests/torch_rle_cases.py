@@ -17,6 +17,8 @@ FMA_CASES = [
 # dist2 = 36 == (allow*c)^2 at allow 2 with every average inexact in f64,
 # the tie K2 must flag
 TIE = np.array([[3, 3, 3], [3, 3, 2], [4, 4, 3], [2, 2, 2]], np.uint8)
+FLAT = (3, 3, 3)  # the colour of TIE's first pixel
+SPEC_TIE = 448    # a seam at chunks 1, 2, 7, 32 and 64, not a true run start
 
 
 def make_batch(rng):
@@ -81,3 +83,25 @@ def seam_batch(chunk, rng):
     for i, s in enumerate(streams):
         scans[i, : len(s)] = s
     return scans, np.array([len(s) for s in streams])
+
+
+def tie_batch(rng):
+    """Four streams for K2's chunk schedule at allow 2. (i) 510 pixels of
+    FLAT (two runs capped at 255, so the true walk starts a run at 510),
+    then TIE from 510: the true walk meets the tie at 513, a walk that
+    starts fresh at the chunk holding 513 does not, and the seams before it
+    never sync. (ii) FLAT with TIE at SPEC_TIE: a walk that starts fresh at
+    that seam meets the tie at SPEC_TIE + 3; the true walk, deep in a run of
+    FLAT, accepts it with no tie. Then TIE after a far colour (every walk
+    starts a run at it: a tie at a sync point) and a flat stream, whose runs
+    capped at 255 never start where a chunk does. Returns (scans, lens)."""
+    rewalked = np.full((700, 3), FLAT)
+    rewalked[510:514] = TIE
+    rewalked[514:] = rng.integers(0, 256, (186, 3))
+    speculative = np.full((700, 3), FLAT)
+    speculative[SPEC_TIE:SPEC_TIE + 4] = TIE
+    synced = rng.integers(150, 256, (700, 3))
+    synced[300:304] = TIE
+    flat = np.full((700, 3), 9)
+    scans = np.stack([rewalked, speculative, synced, flat]).astype(np.uint8)
+    return scans, np.full(4, 700)
