@@ -88,10 +88,27 @@ Phases:
    decodes too; the CPU runs the plain versions), the phase-4 voronoi
    streams decoded on the CPU give the MSEs measured on the card, and the
    golden 3840x2160 image (seed 42) encodes with voronoi(128) on the card
-   to the stream whose hash the tests pin.
+   to the stream whose hash the tests pin;
+6. the multi-device layer (`cniic_tpu_torch.parallel.mesh`) and `entry`,
+   with the kernel counts set to 0 before each part and read after: (a)
+   `sharded_kmeans` over the golden 3840x2160 image's 8,294,400 voronoi
+   points (d = 5, k = 128) on a world of 1 under NCCL and on a world of 2
+   ranks sharing the card under gloo (spawned), each equal to `km.kmeans`
+   on the card (centroids, assignment, iterations), with the time an
+   iteration beside the single-device loop's (both on the card's clock,
+   CUDA events), the all-reduces' share of the loop, and at the world of 1
+   the iteration split into K1, D3, the all-reduce, the candidate gather
+   and copies, and idle gaps (profiler), beside the host's time to issue
+   an iteration; (b) on the same two gloo ranks, voronoi(128) and
+   cluster-colors(32) `encode_batch` over phase 4's 8 images of 1024^2,
+   lane-sharded: streams and fused MSEs equal phase 4's; (c) `entry()`'s
+   fn on the card equal to its CPU run; (d) `dryrun_multichip(1)` on the
+   NCCL group. K1 and D3 must have launched on both sharded worlds.
 
 It ends with a line holding the card's name and power limit, a JSON line
-describing each kernel of the paths, and the JSON result line. Any failure
+describing each kernel of the paths (K1's and D3's with their launches on
+phase 6's sharded paths, `launches_sharded`, and in each of its runs,
+`launches_phase_6`), and the JSON result line. Any failure
 raises (non-zero exit, no result line). Without a card it fails unless
 --rehearse-cpu is given, and then its last line says "platform": "cpu".
 """
@@ -159,6 +176,10 @@ SIZES = {
     True: dict(side=64, div2k=(68, 102), crop=32, tie_n=3000,
                frozen_n=2000, bigk_side=64, iters=2, k3_len=1024),
 }
+# phase 6: the image whose voronoi points the point-sharded k-means takes
+# (the golden 4K image), and its k
+SIZES[False].update(mesh_img=(2160, 3840), mesh_k=128)
+SIZES[True].update(mesh_img=(54, 96), mesh_k=16)
 
 # (allow, count c, t0, t1, t2): a run of c pixels then a pixel x with
 # t = S - c*x, where the f32 distance sum fma(t2, t2, fma(t0, t0, t1*t1))
@@ -310,7 +331,8 @@ def phase_build(rehearse: bool) -> None:
     k1 = {name: v for name, v in k1.items() if "assign_stats_kernel" in name}
     # 8 dimensions x statistics branch x packed x with or without the update
     check(len(k1) == 64, f"ptxas reported {len(k1)} of 64 K1 kernels")
-    check(len(steps) == 1, f"ptxas reported {len(steps)} D3 kernels")
+    # D3 alone gathering the steal's points, and given them
+    check(len(steps) == 2, f"ptxas reported {len(steps)} D3 kernels")
     for name, (regs, st, ld, smem) in sorted(k1.items()):
         m = re.search(r"ILi(\d)ELb([01])ELb([01])ELb([01])E", name)
         check(m is not None, f"unexpected K1 instance {name}")
@@ -321,7 +343,8 @@ def phase_build(rehearse: bool) -> None:
                   f"{regs} registers, {smem} B static smem, {st} B spills")
     print(f"  K1, all 64 instances: max {max(v[0] for v in k1.values())} "
           f"registers, max {max(v[1] for v in k1.values())} B spills; D3 "
-          f"alone {steps[0][0]} registers, {steps[0][1]} B spills")
+          f"alone (both modes) {max(v[0] for v in steps)} registers, "
+          f"{max(v[1] for v in steps)} B spills")
     check(bitpack.load_library().huf_pack_tile() == bitpack.TILE,
           "bitpack.TILE is not the tile huffman_dev.cu was built with")
     with open(_build.log_path(approx_rle.NAME)) as fh:
@@ -691,6 +714,27 @@ def phase_kernel(imgs, dev, card, sz):
                   f"{max_iters}, step {step + 1})")
     check(int(got[9].max()) == 2**31 + 6 and not bool(got[8].any()),
           "D3 did not stop at a binding max_iters")
+    # the mode the point-sharded k-means runs: the empty clusters take the
+    # candidates given (here unrelated to ptsT) instead of a gather
+    got = _d3_state(a_ops, outs["a voronoi"], 2**40)
+    B, k, d = got[4].shape
+    stolen = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 1024, (B, k, d)).astype(np.int32)).to(dev)
+    want = [t.cpu().clone() if torch.is_tensor(t) else t for t in got]
+    empty = (want[0][:, :, d] == 0) & (want[8] != 0)[:, None]
+    for step in range(2):
+        kmeans_kernel.step_update_ref(*want, stolen=stolen.cpu())
+        kmeans_kernel.step_update(*got, stolen=stolen)
+        err = _max_err(got[:11], want[:11])
+        d3_err = max(d3_err, err)
+        print(f"  D3 (a) given the steal's candidates, step {step + 1}: max "
+              f"|err| of sums, moved_k, cents, moved, best, stall, act, it "
+              f"= {err}; {int(empty.sum())} empty clusters at step 1")
+        check(err == 0, f"D3 given the candidates differs from its plain "
+              f"version (step {step + 1})")
+    check(bool(empty.any()) and torch.equal(
+        want[4][empty], stolen.cpu()[empty]),
+        "the empty clusters did not take the candidates given")
 
     print("phase 3 (cont.): the whole iteration in one launch against K1's "
           "then D3's plain versions (exact equality)")
@@ -1701,6 +1745,260 @@ def phase_card_vs_cpu(imgs, runs, dev, crop):
               f"({len(data)} B, sha {VORONOI_4K_SHA[:6]}..., {t1 - t0:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the multi-device layer and entry()
+# ---------------------------------------------------------------------------
+
+def voronoi_points(img) -> np.ndarray:
+    """The (x, y, r, g, b) points of an image, row-major: int32[h*w, 5]."""
+    h, w = img.shape[:2]
+    idx = np.arange(h * w, dtype=np.int32)
+    return np.concatenate([np.stack([idx % w, idx // w], axis=1),
+                           img.reshape(-1, 3).astype(np.int32)], axis=1)
+
+
+@contextlib.contextmanager
+def timed_drive(dev, out: list):
+    """Appends each k-means loop's milliseconds (`km._drive`, host checks
+    included) to `out` for the duration, on the clock `sharded_kmeans`
+    times its loop with (`mesh.Clock`: CUDA events on the card)."""
+    from cniic_tpu_torch.parallel import mesh
+
+    real = km._drive
+
+    def drive(*args, **kwargs):
+        clock = mesh.Clock(dev)
+        clock.mark()
+        r = real(*args, **kwargs)
+        clock.mark("loop")
+        out.append(clock.parts_ms()["loop"])
+        return r
+
+    km._drive = drive
+    try:
+        yield out
+    finally:
+        km._drive = real
+
+
+# the sharded iteration's parts on the card, from the kernels' names
+ITERATION_PARTS = (("K1", "assign_stats"), ("D3", "step_update"),
+                   ("all-reduce", "AllReduce"))
+# the uploads, the host checks' and the result's reads, the result's gather
+SET_UP = ("Memcpy HtoD", "Memcpy DtoH", "AllGather", "Memset")
+
+
+def iteration_split(group, pts, k, dev, iters: int, card: str) -> dict:
+    """Device ms an iteration of a warm `sharded_kmeans` call on the card,
+    by part (profiler): K1, D3, the all-reduce, the candidate gather and
+    the buffer copies (every other kernel of the loop), and the idle gaps
+    (the loop's time on the card's clock less all of these: the card
+    waiting for the host to issue work or for the collective's stream),
+    beside the host's time an iteration less its waits for the checks. The uploads,
+    read-backs and the closing all-gather are left out. An NCCL world of 1
+    launches no all-reduce kernel. {} in a rehearsal."""
+    from cniic_tpu_torch.parallel import mesh
+
+    stats = {}
+    split = _device_split(
+        lambda: mesh.sharded_kmeans(group, pts, k, device=dev.type,
+                                    stats=stats), dev, calls=1)
+    if not split:
+        print("  the sharded iteration's split: not measured (no card)")
+        return {}
+    parts = {part: 0.0 for part, _ in ITERATION_PARTS}
+    parts["candidates and copies"] = 0.0
+    for name, ms in split.items():
+        part = next((p for p, key in ITERATION_PARTS if key in name), None)
+        if part is None and not any(key in name for key in SET_UP):
+            part = "candidates and copies"
+        if part is not None:
+            parts[part] += ms
+    check(stats["iters"] == iters, "the profiled sharded_kmeans call ran "
+          f"{stats['iters']} iterations, not {iters}")
+    per = {p: ms / iters for p, ms in parts.items()}
+    per["idle gaps"] = (stats["loop_ms"] - sum(parts.values())) / iters
+    per["loop"] = stats["loop_ms"] / iters
+    host = stats["host_ms"] / iters
+    print(f"  the sharded iteration on {card}, an NCCL world of 1, device ms "
+          "an iteration by the profiler: "
+          + ", ".join(f"{p} {v:.4f}" for p, v in per.items())
+          + "; by CUDA events between the loop's marks: "
+          + ", ".join(f"{p} {v / iters:.4f}"
+                      for p, v in stats["parts_ms"].items())
+          + f"; the host issues it in {host:.4f} ms")
+    return {"device_ms_per_iteration": per, "host_ms_per_iteration": host,
+            "events_ms_per_iteration": {p: v / iters for p, v in
+                                        stats["parts_ms"].items()},
+            "kernels_ms": split}
+
+
+def _digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _sharded_twice(group, pts, k, device):
+    """`sharded_kmeans` twice: the first call pays for the set-up (NCCL
+    makes its communicator at the first collective, kernels load at their
+    first launch), the second runs warm. Returns (centroids, assignment
+    digest, iterations, warm stats, first call's stats) of the warm call,
+    which must equal the first's."""
+    from cniic_tpu_torch.parallel import mesh
+
+    runs = []
+    for _ in range(2):
+        stats = {}
+        c, a, it = mesh.sharded_kmeans(group, pts, k, device=device,
+                                       stats=stats)
+        runs.append((c, _digest(a), it, stats))
+    (c0, a0, i0, first), (c, a, it, warm) = runs
+    check(i0 == it and a0 == a and np.array_equal(c0, c),
+          "sharded_kmeans gave two results on the same input")
+    return c, a, it, warm, first
+
+
+def _mesh_rank(pts, k, imgs, device):
+    """Phase 6 on one rank of a group whose ranks share the card (gloo):
+    the point-sharded k-means, then the lane-sharded encodes with the fused
+    voronoi decode + MSE, each with the kernel counts it launched."""
+    from cniic_tpu_torch.parallel import mesh
+
+    group = mesh.make_mesh()
+    k1, d3 = kmeans_kernel.assign_stats, kmeans_kernel.step_update
+    k1.launches = d3.launches = 0
+    out = {"kmeans": _sharded_twice(group, pts, k, device),
+           "kmeans launches": (k1.launches, d3.launches), "encodes": {}}
+    k1.launches = d3.launches = 0
+    for spec in SPECS:
+        codec = from_spec(spec, device=device)
+        t0 = time.perf_counter()
+        blobs = codec.encode_batch(imgs)
+        t1 = time.perf_counter()
+        fused = getattr(codec, "decode_mse_batch", None)
+        mses = fused(blobs, imgs)[0] if fused is not None else None
+        out["encodes"][spec] = (blobs, mses, t1 - t0)
+    out["encode launches"] = (k1.launches, d3.launches)
+    return out
+
+
+def phase_multi_device(imgs, runs, dev, card, sz):
+    """Phase 6 (see the module docstring); returns the path's launches."""
+    import torch.distributed as dist
+
+    from cniic_tpu_torch import entry
+    from cniic_tpu_torch.parallel import launch, mesh
+
+    h, w = sz["mesh_img"]
+    k = sz["mesh_k"]
+    img = synth_natural(np.random.default_rng(42), h, w)
+    pts = voronoi_points(img)
+    print(f"phase 6: the multi-device layer on {card}: sharded_kmeans over "
+          f"the {w}x{h} image's {len(pts)} voronoi points (d = 5, k = {k})")
+    k1, d3 = kmeans_kernel.assign_stats, kmeans_kernel.step_update
+    k1.launches = d3.launches = 0
+    loops = []
+    with timed_drive(dev, loops):
+        want = km.kmeans(pts, k, device=dev.type)
+    single_ms = loops[0] / max(want[2], 1)
+    print(f"  one device (km.kmeans): {want[2]} iterations, "
+          f"{single_ms:.4f} ms an iteration ({loops[0]:.2f} ms the loop)")
+    launches = {"one device": (k1.launches, d3.launches)}
+
+    def same(name, c, digest, it, stats, first):
+        err = int(np.abs(c - want[0]).max())
+        check(it == want[2] and digest == _digest(want[1]) and err == 0,
+              f"sharded_kmeans ({name}) differs from km.kmeans: {it} "
+              f"iterations against {want[2]}, centroids max |err| {err}, "
+              f"assignment {'equal' if digest == _digest(want[1]) else 'differs'}")
+        per = stats["loop_ms"] / max(it, 1)
+        print(f"  sharded_kmeans, {name}: equal to km.kmeans (centroids, "
+              f"assignment, {it} iterations); {per:.4f} ms an iteration "
+              f"({per / single_ms:.2f}x one device's), the collectives "
+              f"{stats['collective_ms']:.2f} ms of the loop's "
+              f"{stats['loop_ms']:.2f} ms (share "
+              f"{stats['collective_ms'] / stats['loop_ms']:.4f}, "
+              f"{stats['collectives']} all-reduces); its first call "
+              f"{first['loop_ms'] / max(it, 1):.4f} ms an iteration, the "
+              f"collectives {first['collective_ms']:.2f} of "
+              f"{first['loop_ms']:.2f} ms (set-up included); the host "
+              f"issues an iteration in {stats['host_ms'] / max(it, 1):.4f} "
+              "ms (its waits for the checks left out)")
+        return {"ms_per_iteration": per,
+                "host_ms_per_iteration": stats["host_ms"] / max(it, 1),
+                "first_call_ms_per_iteration": first["loop_ms"] / max(it, 1),
+                "first_call_collective_ms": first["collective_ms"],
+                "collective_share": stats["collective_ms"] / stats["loop_ms"],
+                "collective_ms": stats["collective_ms"],
+                "loop_ms": stats["loop_ms"], "iterations": it}
+
+    backend1 = "nccl" if dev.type == "cuda" else "gloo"
+    timings = {"one device ms_per_iteration": single_ms}
+    k1.launches = d3.launches = 0
+    group = mesh.make_mesh(1, device=dev.type)
+    try:
+        timings[f"world 1 {backend1}"] = same(
+            f"a world of 1 under {backend1}",
+            *_sharded_twice(group, pts, k, dev.type))
+        launches[f"world 1 {backend1}"] = (k1.launches, d3.launches)
+        timings[f"world 1 {backend1}"]["split"] = iteration_split(
+            group, pts, k, dev, want[2], card)
+        k1.launches = d3.launches = 0
+        t0 = time.perf_counter()
+        entry.dryrun_multichip(1, device=dev.type)
+        print(f"  dryrun_multichip(1, device={dev.type!r}) under "
+              f"{backend1}: passed ({time.perf_counter() - t0:.2f} s)")
+        launches["dryrun_multichip(1)"] = (k1.launches, d3.launches)
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = launch.run(2, _mesh_rank, (pts, k, imgs[:8], dev.type),
+                       device=dev.type, backend="gloo")
+    print(f"  a world of 2 under gloo on the one {dev.type} device: two "
+          f"ranks spawned, run and joined in {time.perf_counter() - t0:.1f} s")
+    for r, out in enumerate(ranks):
+        key = f"world 2 gloo rank {r}"
+        timings[key] = same(f"rank {r} of 2 under gloo", *out["kmeans"])
+        launches[key] = out["kmeans launches"]
+        for spec in SPECS:
+            blobs, mses, secs = out["encodes"][spec]
+            _, res, rec = runs[spec]
+            check(blobs == rec["blobs"][:len(blobs)],
+                  f"{spec}: rank {r}'s lane-sharded streams differ from "
+                  "the single-device ones")
+            if mses is not None:
+                check(mses == rec["fused_mses"][:len(mses)],
+                      f"{spec}: rank {r}'s sharded fused MSEs differ")
+            print(f"  {spec} encode_batch of {len(blobs)} images, rank {r} "
+                  f"of 2 (gloo): streams{' and fused MSEs' if mses else ''} "
+                  f"equal the single-device ones ({secs:.2f} s)")
+        launches[f"world 2 gloo rank {r} encodes"] = out["encode launches"]
+
+    k1.launches = d3.launches = 0
+    fn, args = entry.entry(device=dev.type)
+    got = fn(*args)
+    launches["entry"] = (k1.launches, d3.launches)
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    ref = cpu_fn(*cpu_args)
+    err = max(_max_err(got[1:], ref[1:]), abs(got[0] - ref[0]))
+    print(f"  entry(): fn(*args) on {dev.type} ({got[0]} iterations, "
+          f"{launches['entry'][0]} K1 launches) against its CPU run: max "
+          f"|err| of it, cur, cents, moved, best, stall = {err}")
+    check(err == 0, "entry()'s fn on the card differs from its CPU run")
+    sharded = [f"world 1 {backend1}"] + [
+        f"world 2 gloo rank {r}{part}" for r in range(len(ranks))
+        for part in ("", " encodes")]
+    total = tuple(sum(launches[n][i] for n in sharded) for i in (0, 1))
+    print(f"  K1 / D3 launches on the sharded paths: {total[0]} / {total[1]}"
+          f" ({'; '.join(f'{n} {a} / {b}' for n, (a, b) in launches.items())})")
+    if dev.type == "cuda":
+        for name in (f"world 1 {backend1}", "world 2 gloo rank 0",
+                     "world 2 gloo rank 1"):
+            check(min(launches[name]) > 0,
+                  f"K1 or D3 never launched on the sharded path ({name})")
+    return {"launches": launches, "total": total, "timings": timings}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -1738,6 +2036,8 @@ def main() -> int:
         took("phase 4")
         phase_card_vs_cpu(imgs, runs, dev, sz["crop"])
         took("phase 5")
+    multi = phase_multi_device(imgs, runs, dev, card, sz)
+    took("phase 6")
 
     if dev.type == "cuda":
         print(run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1769,7 +2069,10 @@ def main() -> int:
             "device_ms_cluster_colors": dev_ms_b,
             "plain_ms_cluster_colors": plain_ms_b,
             "bound_ms_cluster_colors": b_ms_b},
-        "step": step_a, "step_cluster_colors": step_b}]
+        "step": step_a, "step_cluster_colors": step_b,
+        "launches_sharded": multi["total"][0],
+        "launches_phase_6": {n: v[0] for n, v in multi["launches"].items()},
+        "mesh": multi["timings"]}]
     # D3 runs on the main path inside K1's launches and never as a launch of
     # its own: its time there is the one launch's less K1's, kernels alone
     d3_ms, d3_plain, d3_b, d3_by, d3_call = timings["D3"]
@@ -1782,7 +2085,9 @@ def main() -> int:
         "library_ms": None,
         "fused_tail_ms": step_a["fused_tail_ms"],
         "fused_tail_ms_cluster_colors": step_b["fused_tail_ms"],
-        "alone_ms": d3_ms, "alone_call_ms": d3_call})
+        "alone_ms": d3_ms, "alone_call_ms": d3_call,
+        "launches_sharded": multi["total"][1],
+        "launches_phase_6": {n: v[1] for n, v in multi["launches"].items()}})
     if windows:
         kernels[0]["encode_windows"] = {
             spec: {k: w[k] for k in ("wall_s", "busy_share", "k1_share",

@@ -11,6 +11,15 @@ special runs on the host: it dumps three CSVs per image (rect/small/large
 traversals, main.rs:31-49) under ``output/``; the header is
 ``red,blue,green`` — the reference's exact (mislabeled) header — while the
 values are r,g,b.
+
+Under torchrun (WORLD_SIZE > 1 in the environment) each rank brings the
+process group up through ``parallel.mesh.make_mesh`` on ``--device`` (NCCL
+on cuda, one card a rank; gloo on the CPU), the k-means codecs shard their
+lanes over it, and rank 0 alone writes the CSV, the decoded images and the
+summary line:
+
+    torchrun --nproc-per-node=4 -m cniic_tpu_torch --codec='voronoi(128)' \
+        --batch=8 <img files...>
 """
 
 from __future__ import annotations
@@ -19,8 +28,11 @@ import csv
 import os
 import sys
 
+import torch.distributed as dist
+
 from . import hilbert, image_io, runner
 from .codecs import from_spec
+from .parallel import mesh
 
 USAGE = """Usage: python -m cniic_tpu_torch --codec=<codec> [--device cuda|cpu] [--batch=N] [--resume] [<img file>..]
        python -m cniic_tpu_torch --special=hilbert [<img file>..]
@@ -126,8 +138,17 @@ def main(argv=None) -> int:
     except Exception as e:
         print(f"Malformed codec argument\n{e}", file=sys.stderr)
         return 1
-    res = runner.measure_all(codec, files, batch=batch, resume=resume)
-    print(f"{codec.name}: {len(res.rows)} images ok, {len(res.failures)} failed; "
-          f"mean ratio {res.mean_ratio:.3f}%, mean MSE {res.mean_error:.3f}; "
-          f"encode {res.encode_mps:.3f} MP/s on {codec.device}")
+    ranks = int(os.environ.get("WORLD_SIZE", "1") or "1")
+    if ranks > 1:
+        mesh.make_mesh(ranks, device=device)
+    try:
+        res = runner.measure_all(codec, files, batch=batch, resume=resume)
+    finally:
+        if ranks > 1:
+            dist.destroy_process_group()
+    if ranks <= 1 or os.environ.get("RANK", "0") == "0":
+        print(f"{codec.name}: {len(res.rows)} images ok, "
+              f"{len(res.failures)} failed; mean ratio {res.mean_ratio:.3f}%, "
+              f"mean MSE {res.mean_error:.3f}; encode {res.encode_mps:.3f} "
+              f"MP/s on {codec.device}")
     return 0 if not res.failures else 2

@@ -77,6 +77,12 @@
 //     count is the batch's, and no lane reads another's state.
 //   * Standalone (kmeans_step_update): one block a lane calls the same
 //     function after a K1 launched without the update.
+//   * Given the steal candidates (kmeans_step_update with `stolen`): the
+//     point-sharded k-means holds a shard of the points on each rank, so no
+//     rank can gather pts[steal] itself. The ranks assemble stolen[b, j, :]
+//     with an all-reduce, and the update reads the empty clusters' points
+//     from it instead of from ptsT (a second instance of the standalone
+//     kernel; the fused one never takes it).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cniic_tpu_torch/ops/kmeans_kernel.py). The launchers
@@ -173,12 +179,16 @@ struct Update {
 // D3 for lane b, by all threads of one block, after every K1 block of the
 // lane has added its statistics (a later launch, or the last ticket).
 // Inlined into K1 on purpose: as a call it made the one-launch iteration
-// ~10 us slower at 4 lanes of 1024^2 points, k = 128.
+// ~10 us slower at 4 lanes of 1024^2 points, k = 128. kStolen: an empty
+// cluster j takes stolen[b, j, :] (int32 [B, k, d]) instead of the point the
+// hash picks from ptsT.
+template <bool kStolen>
 __device__ __forceinline__ void lane_update(
     int b, u64* sums,                  // [B, k, d + 1]
     int32_t* moved_k,                  // [B], K1's counts
     const int32_t* __restrict__ ptsT,  // [B, d, n_max]
     const int32_t* __restrict__ n,     // [B]
+    const int32_t* __restrict__ stolen,  // [B, k, d] (kStolen only)
     int32_t* cents,                    // [B, k, d]
     int32_t* act,                      // [B]
     const Update& up, int d, int n_max, int k) {
@@ -193,6 +203,8 @@ __device__ __forceinline__ void lane_update(
     if (wsum > 0) {
       // both nonnegative: truncation = floor
       v = (long long)__ldcg(s + (size_t)j * (d + 1) + dim) / wsum;
+    } else if (kStolen) {
+      v = stolen[((size_t)b * k + j) * d + dim];
     } else {
       // the Weyl steal: ((it+1)*2654435769 + j*40503) & 0x7FFFFFFF over the
       // lane's valid points (JAX's int32 wraparound has the same low bits)
@@ -385,7 +397,8 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
     __syncthreads();
     if (s_last) {
       __threadfence();
-      lane_update(b, sums, moved, ptsT, n, cents, act, up, D, n_max, k);
+      lane_update<false>(b, sums, moved, ptsT, n, nullptr, cents, act, up, D,
+                         n_max, k);
     }
   }
 }
@@ -519,14 +532,17 @@ cudaError_t launch_step(const void* ptsT, const void* w, const void* cur,
 }
 
 // D3 alone: one block a lane that the K1 before it ran.
+template <bool kStolen>
 __global__ void __launch_bounds__(kThreads)
 step_update_kernel(u64* sums, int32_t* moved_k,
                    const int32_t* __restrict__ ptsT,
-                   const int32_t* __restrict__ n, int32_t* cents, int32_t* act,
-                   int d, int n_max, int k, Update up) {
+                   const int32_t* __restrict__ n,
+                   const int32_t* __restrict__ stolen, int32_t* cents,
+                   int32_t* act, int d, int n_max, int k, Update up) {
   const int b = blockIdx.x;
   if (act[b] == 0) return;
-  lane_update(b, sums, moved_k, ptsT, n, cents, act, up, d, n_max, k);
+  lane_update<kStolen>(b, sums, moved_k, ptsT, n, stolen, cents, act, up, d,
+                       n_max, k);
 }
 
 }  // namespace
@@ -567,24 +583,27 @@ int kmeans_fused_step(const void* ptsT, const void* w, const void* cur,
 }
 
 // Launch one D3 update on `stream` after a kmeans_assign_stats (shapes on
-// lane_update; moved, best, stall, it and thresh are int64 [B]). Returns a
-// cudaError_t.
+// lane_update; moved, best, stall, it and thresh are int64 [B]). `stolen`
+// (int32 [B, k, d]) gives the empty clusters' points; null gathers them from
+// ptsT by the hash. Returns a cudaError_t.
 int kmeans_step_update(void* sums, void* moved_k, const void* ptsT,
-                       const void* n, void* cents, void* moved, void* best,
-                       void* stall, void* act, void* it, const void* thresh,
-                       int B, int d, int n_max, int k, long long stall_lim,
-                       long long max_iters, void* stream) {
+                       const void* n, const void* stolen, void* cents,
+                       void* moved, void* best, void* stall, void* act,
+                       void* it, const void* thresh, int B, int d, int n_max,
+                       int k, long long stall_lim, long long max_iters,
+                       void* stream) {
   if (B <= 0) return cudaSuccess;
   if (d < 1 || k < 1 || n_max < 1) return cudaErrorInvalidValue;
   const Update up{static_cast<long long*>(moved), static_cast<long long*>(best),
                   static_cast<long long*>(stall), static_cast<long long*>(it),
                   static_cast<const long long*>(thresh), nullptr, stall_lim,
                   max_iters};
-  step_update_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = stolen ? step_update_kernel<true> : step_update_kernel<false>;
+  kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<u64*>(sums), static_cast<int32_t*>(moved_k),
       static_cast<const int32_t*>(ptsT), static_cast<const int32_t*>(n),
-      static_cast<int32_t*>(cents), static_cast<int32_t*>(act), d, n_max, k,
-      up);
+      static_cast<const int32_t*>(stolen), static_cast<int32_t*>(cents),
+      static_cast<int32_t*>(act), d, n_max, k, up);
   return cudaGetLastError();
 }
 

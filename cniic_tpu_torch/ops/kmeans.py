@@ -25,6 +25,13 @@ stream bytes:
   chunks of ``CNIIC_KMEANS_LANES`` (8 for `kmeans_batch`, 4 for voronoi) so
   that it compares equal with the reference.
 
+Under a process group of several ranks (``parallel/mesh.py``), each chunk
+whose lanes the ranks divide is lane-sharded, as JAX shards the lane axis
+over its devices: every rank validates every lane, uploads and drives its own
+contiguous lanes, and gathers the others' results; ``iters`` is the chunk's
+maximum over the ranks, so it equals the single-device count.
+CNIIC_MESH=0 turns this off.
+
 The loop stays on the device: D3 keeps each lane's iteration count there and
 freezes the lane once it reaches ``max_iters``, and the host reads the
 counts and the active flags every ``_CHECK_EVERY`` iterations. The
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel import mesh
 from .kmeans_kernel import prepare_step
 
 log = logging.getLogger(__name__)
@@ -252,10 +260,15 @@ def kmeans_batch(points_list, k: int, weights_list=None,
         _validate_lane(p, wl, k)
     pts, w, ns = pad_lanes(points_list, weights_list)
     pmax = pts.max(axis=(0, 2)).tolist()
-    ptsT = torch.from_numpy(pts).to(dev)
-    cur, cents = _init_state(ptsT, ns, k)
-    it, cur, cents = _drive(ptsT, torch.from_numpy(w).to(dev), cur, cents,
-                            ns, k, pmax, max_iters)
+    group, lo, hi = mesh.batch_lanes(len(ns))
+    ptsT = torch.from_numpy(pts[lo:hi]).to(dev)
+    cur, cents = _init_state(ptsT, ns[lo:hi], k)
+    it, cur, cents = _drive(ptsT, torch.from_numpy(w[lo:hi]).to(dev), cur,
+                            cents, ns[lo:hi], k, pmax, max_iters)
+    if group is not None:
+        cur = mesh.gather_lanes(group, cur)
+        cents = mesh.gather_lanes(group, cents)
+        it = mesh.all_max(group, it)
     assign_np = cur.cpu().numpy()
     cents_np = cents.cpu().numpy().astype(np.int64)
     out = []
@@ -324,7 +337,8 @@ def voronoi_centroids_batch(imgs: np.ndarray, k: int,
     Returns a list of int64[k, 5] (or, with on_error="collect", the
     exception in place of a failed lane's centroids). With
     return_device_imgs=True, returns (list, uint8[B, h, w, 3] on the device)
-    so the fused decode+MSE path can reuse the uploaded batch.
+    so the fused decode+MSE path can reuse the uploaded batch; None in its
+    place when a lane-sharded chunk uploaded only this rank's lanes.
     """
     dev = resolve_device(device)
     imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
@@ -344,8 +358,8 @@ def voronoi_centroids_batch(imgs: np.ndarray, k: int,
             else:
                 outs.extend(r)
         if return_device_imgs:
-            devs = [d for d in devs if d is not None]
-            return outs, (torch.cat(devs) if devs else None)
+            whole = devs and all(d is not None for d in devs)
+            return outs, (torch.cat(devs) if whole else None)
         return outs
     try:
         if k < 1:
@@ -364,13 +378,20 @@ def voronoi_centroids_batch(imgs: np.ndarray, k: int,
         # same shape => the whole bucket shares the failure
         return ([e] * B, None) if return_device_imgs else [e] * B
 
-    imgs_dev = torch.from_numpy(imgs).to(dev)
+    group, lo, hi = mesh.batch_lanes(B)
+    imgs_dev = torch.from_numpy(imgs[lo:hi]).to(dev)
     ptsT, w_dev = _voronoi_setup(imgs_dev)
-    ns = [n] * B
+    ns = [n] * (hi - lo)
     cur, cents = _init_state(ptsT, ns, k)
     it, cur, cents = _drive(ptsT, w_dev, cur, cents, ns, k,
                             [w - 1, h - 1, 255, 255, 255], max_iters)
-    actives = _active_counts(cur, k).tolist()
+    actives = _active_counts(cur, k)
+    if group is not None:
+        cents = mesh.gather_lanes(group, cents)
+        actives = mesh.gather_lanes(group, actives)
+        it = mesh.all_max(group, it)
+        imgs_dev = None  # this rank holds only its own lanes
+    actives = actives.tolist()
     cents_np = cents.cpu().numpy().astype(np.int64)
     out = []
     for b in range(B):

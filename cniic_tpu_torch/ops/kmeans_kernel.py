@@ -25,11 +25,15 @@ with D3 run by the last block of each lane (``prepare_step``).
 * ``step_update`` is D3's wrapper for the update alone, one block a lane
   (same rules, ``step_update.launches``); ``step_update_ref`` its plain
   version, the torch ops of the engine's loop body gathered into one
-  function that never syncs with the host.
+  function that never syncs with the host. Both take ``stolen``, the empty
+  clusters' candidate points, in place of gathering them from ``ptsT``: the
+  point-sharded k-means (``parallel/mesh.py``) assembles them across ranks.
 * ``prepare_step`` checks the operands of a whole iteration once and returns
   a callable that launches it: on the card one kernel, K1 whose last block
   of each lane runs D3 (counted in ``assign_stats.launches``); with
   ``fused=False`` or on the CPU, ``assign_stats`` then ``step_update``.
+  ``prepare_assign`` and ``prepare_update`` do the same for each alone (the
+  point-sharded loop runs its all-reduce between them).
 
 K1's operands (B lanes, n_max points per lane, d dimensions, k centroids):
 ptsT int32[B, d, n_max] (nonnegative), w int32[B, n_max], cur int32[B, n_max]
@@ -82,7 +86,7 @@ def load_library() -> ctypes.CDLL:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.kmeans_assign_stats.argtypes = [vp] * 9 + [ci] * 5 + [vp]
     lib.kmeans_assign_stats.restype = ci
-    lib.kmeans_step_update.argtypes = [vp] * 11 + [ci] * 4 + [cl, cl, vp]
+    lib.kmeans_step_update.argtypes = [vp] * 12 + [ci] * 4 + [cl, cl, vp]
     lib.kmeans_step_update.restype = ci
     lib.kmeans_fused_step.argtypes = [vp] * 15 + [ci] * 5 + [cl, cl, vp]
     lib.kmeans_fused_step.restype = ci
@@ -166,19 +170,33 @@ def assign_stats(ptsT, w, cur, cents, n, act, pmax, out=None):
     from which the squared-distance bound is checked below 2^31 and the
     packed path is chosen.
     CUDA tensors launch the kernel, CPU tensors take `assign_stats_ref`."""
+    step = prepare_assign(ptsT, w, cur, cents, n, act, pmax, out)
+    if ptsT.device.type != "cuda":
+        return step()
+    with torch.cuda.device(ptsT.device):
+        return step()
+
+
+def prepare_assign(ptsT, w, cur, cents, n, act, pmax, out=None):
+    """Check K1's operands once and return a callable that runs
+    `assign_stats` on them, any number of times, and returns its outputs.
+    On CUDA tensors it launches on the stream that is current now (the
+    caller keeps the tensors' device current while it calls)."""
     _check(ptsT, w, cur, cents, n, act, pmax, out)
     dev = ptsT.device
     if dev.type == "cpu":
-        got = assign_stats_ref(ptsT, w, cur, cents, n, act)
-        if out is None:
-            return got
-        new, sums, moved = out
-        keep = ((act != 0)[:, None]
-                & (torch.arange(ptsT.shape[2])[None, :] < n[:, None]))
-        new.copy_(torch.where(keep, got[0], new))
-        sums += got[1]
-        moved += got[2]
-        return out
+        def plain():
+            got = assign_stats_ref(ptsT, w, cur, cents, n, act)
+            if out is None:
+                return got
+            new, sums, moved = out
+            keep = ((act != 0)[:, None]
+                    & (torch.arange(ptsT.shape[2])[None, :] < n[:, None]))
+            new.copy_(torch.where(keep, got[0], new))
+            sums += got[1]
+            moved += got[2]
+            return out
+        return plain
     if dev.type != "cuda":
         raise ValueError(f"assign_stats runs on cuda or cpu tensors, not {dev}")
     B, d, n_max = ptsT.shape
@@ -188,19 +206,22 @@ def assign_stats(ptsT, w, cur, cents, n, act, pmax, out=None):
         out = (torch.zeros((B, n_max), dtype=torch.int32, device=dev),
                torch.zeros((B, k, d + 1), dtype=torch.int64, device=dev),
                torch.zeros((B,), dtype=torch.int32, device=dev))
-    new, sums, moved = out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.kmeans_assign_stats(
-            ptsT.data_ptr(), w.data_ptr(), cur.data_ptr(), cents.data_ptr(),
-            n.data_ptr(), act.data_ptr(), new.data_ptr(), sums.data_ptr(),
-            moved.data_ptr(), B, d, n_max, k, int(packed_path(pmax, k)),
-            stream)
-    _raise_launch(lib, rc, f"kmeans_assign_stats (B={B}, d={d}, "
-                           f"n_max={n_max}, k={k})")
-    with _count_lock:
-        assign_stats.launches += 1
-    return out
+    # the tensors stay alive in this tuple for as long as the callable does
+    held = (ptsT, w, cur, cents, n, act, *out)
+    args = ([t.data_ptr() for t in held]
+            + [B, d, n_max, k, int(packed_path(pmax, k)),
+               torch.cuda.current_stream(dev).cuda_stream])
+    launch = lib.kmeans_assign_stats
+    what = f"kmeans_assign_stats (B={B}, d={d}, n_max={n_max}, k={k})"
+
+    def k1():
+        _raise_launch(lib, launch(*args), what)
+        with _count_lock:
+            assign_stats.launches += 1
+        return out
+
+    k1.held = held
+    return k1
 
 
 assign_stats.launches = 0
@@ -265,7 +286,7 @@ def plateau_update(act, new_moved, best, stall):
 
 
 def _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                  it, thresh) -> None:
+                  it, thresh, stolen=None) -> None:
     if ptsT.dim() != 3 or cents.dim() != 3:
         raise ValueError("ptsT must be [B, d, n_max] and cents [B, k, d]")
     B, d, n_max = ptsT.shape
@@ -277,13 +298,16 @@ def _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
         "cents": (cents, i32, (B, k, d)), "moved": (moved, i64, (B,)),
         "best": (best, i64, (B,)), "stall": (stall, i64, (B,)),
         "act": (act, i32, (B,)), "it": (it, i64, (B,)),
-        "thresh": (thresh, i64, (B,))}, ptsT.device)
+        "thresh": (thresh, i64, (B,)),
+        **({} if stolen is None else {"stolen": (stolen, i32, (B, k, d))})},
+        ptsT.device)
     if k < 1:
         raise ValueError("k-means needs k >= 1")
 
 
 def step_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                it, thresh, stall_lim: int, max_iters: int) -> None:
+                it, thresh, stall_lim: int, max_iters: int,
+                stolen=None) -> None:
     """D3, in place: after a K1 step over the lanes `act` names, set their
     centroids to the truncated means (the steal for empty clusters, hashed
     from the lane's iteration count it[b]), their moved / best / stall to
@@ -294,46 +318,73 @@ def step_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
     sums int64[B, k, d+1] and moved_k int32[B] are K1's outputs; moved,
     best, stall, it, thresh int64[B]; act int32[B]. Lanes start together
     and never thaw, so every active lane's count is the batch's.
+    stolen: None to gather an empty cluster's point from ptsT by the hash,
+    or int32[B, k, d], the points to take (then ptsT and n are not read).
     CUDA tensors launch the kernel, CPU tensors take `step_update_ref`."""
+    step = prepare_update(sums, moved_k, ptsT, n, cents, moved, best, stall,
+                          act, it, thresh, stall_lim, max_iters, stolen)
+    if ptsT.device.type != "cuda":
+        step()
+        return
+    with torch.cuda.device(ptsT.device):
+        step()
+
+
+def prepare_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
+                   it, thresh, stall_lim: int, max_iters: int, stolen=None):
+    """Check D3's operands once and return a callable that runs
+    `step_update` on them in place, any number of times. On CUDA tensors it
+    launches on the stream that is current now (the caller keeps the
+    tensors' device current while it calls)."""
     _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                  it, thresh)
+                  it, thresh, stolen)
     dev = ptsT.device
     if dev.type == "cpu":
-        step_update_ref(sums, moved_k, ptsT, n, cents, moved, best, stall,
-                        act, it, thresh, stall_lim, max_iters)
-        return
+        def plain():
+            step_update_ref(sums, moved_k, ptsT, n, cents, moved, best,
+                            stall, act, it, thresh, stall_lim, max_iters,
+                            stolen)
+        return plain
     if dev.type != "cuda":
         raise ValueError(f"step_update runs on cuda or cpu tensors, not {dev}")
     B, d, n_max = ptsT.shape
     k = cents.shape[1]
     lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.kmeans_step_update(
-            sums.data_ptr(), moved_k.data_ptr(), ptsT.data_ptr(),
-            n.data_ptr(), cents.data_ptr(), moved.data_ptr(), best.data_ptr(),
-            stall.data_ptr(), act.data_ptr(), it.data_ptr(),
-            thresh.data_ptr(), B, d, n_max, k, stall_lim, max_iters, stream)
-    _raise_launch(lib, rc, f"kmeans_step_update (B={B}, d={d}, k={k})")
-    with _count_lock:
-        step_update.launches += 1
+    held = (sums, moved_k, ptsT, n, stolen, cents, moved, best, stall, act,
+            it, thresh)
+    args = ([None if t is None else t.data_ptr() for t in held]
+            + [B, d, n_max, k, stall_lim, max_iters,
+               torch.cuda.current_stream(dev).cuda_stream])
+    launch = lib.kmeans_step_update
+    what = f"kmeans_step_update (B={B}, d={d}, k={k})"
+
+    def d3():
+        _raise_launch(lib, launch(*args), what)
+        with _count_lock:
+            step_update.launches += 1
+
+    d3.held = held
+    return d3
 
 
 step_update.launches = 0
 
 
 def step_update_ref(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                    it, thresh, stall_lim: int, max_iters: int) -> None:
+                    it, thresh, stall_lim: int, max_iters: int,
+                    stolen=None) -> None:
     """The plain PyTorch version of D3 (any device, no host sync)."""
     d = ptsT.shape[1]
     k = cents.shape[1]
     a = act != 0
     wsum = sums[:, :, d]
     means = sums[:, :, :d] // wsum.clamp(min=1)[:, :, None]
-    steal = steal_indices(k, it, n.to(torch.int64))
-    stolen = ptsT.gather(2, steal[:, None, :].expand(-1, d, -1))  # (B, d, k)
-    fresh = torch.where((wsum == 0)[:, :, None],
-                        stolen.transpose(1, 2).to(torch.int64), means)
+    if stolen is None:
+        steal = steal_indices(k, it, n.to(torch.int64))
+        stolen = ptsT.gather(2, steal[:, None, :].expand(-1, d, -1)
+                             ).transpose(1, 2)                    # (B, k, d)
+    fresh = torch.where((wsum == 0)[:, :, None], stolen.to(torch.int64),
+                        means)
     cents.copy_(torch.where(a[:, None, None], fresh.to(torch.int32), cents))
     mv = moved_k.to(torch.int64)
     moved.copy_(torch.where(a, mv, moved))
@@ -364,20 +415,17 @@ def prepare_step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
     each lane runs the lane's update, on the stream that is current now
     (the caller keeps the tensors' device current while it calls); it adds
     one to `assign_stats.launches`. `fused=False` keeps the two launches,
-    `assign_stats` then `step_update`, each checking its operands every
-    time. CPU tensors take the two plain versions either way."""
-    out = (cur, sums, moved_k)
-    _check(ptsT, w, cur, cents, n, act, pmax, out)
-    _check_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act, it,
-                  thresh)
+    `assign_stats` then `step_update` (`prepare_assign`, `prepare_update`).
+    CPU tensors take the two plain versions either way."""
+    k1 = prepare_assign(ptsT, w, cur, cents, n, act, pmax,
+                        out=(cur, sums, moved_k))
+    d3 = prepare_update(sums, moved_k, ptsT, n, cents, moved, best, stall,
+                        act, it, thresh, stall_lim, max_iters)
     dev = ptsT.device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the step runs on cuda or cpu tensors, not {dev}")
 
     def two_launches() -> None:
-        assign_stats(ptsT, w, cur, cents, n, act, pmax, out=out)
-        step_update(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
-                    it, thresh, stall_lim, max_iters)
+        k1()
+        d3()
 
     if dev.type == "cpu" or not fused:
         return two_launches

@@ -14,6 +14,11 @@ agrees with the u32 square modulo 2^32. The distance is separable,
 ``dx^2[x, c] + dy^2[y, c] (mod 2^32)``, so the two (coordinate x centroid)
 tables are built once per image and the (pixels x k) tile is one add, one
 mask and one argmin, blocked over image rows. The MSE is an exact int64 sum.
+
+Under a process group of several ranks the fused decode + MSE is
+lane-sharded (``parallel/mesh.py``): a rank reconstructs its own lanes, the
+MSEs are gathered through `mesh.sharded_mse`, and the images only when they
+are fetched.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel import mesh
 
 _M32 = 0xFFFFFFFF
 # elements of one (pixels x k) int64 distance tile
@@ -76,22 +82,24 @@ def reconstruct_mse_batch(centroids_list, colors_list, w: int, h: int,
     as numpy or as a tensor already on the device (the encode upload).
     Returns (mses list[float], fetch) where fetch() pulls the reconstructed
     uint8[h, w, 3] images to the host; each MSE equals runner.compute_error
-    on the fetched image (integer sum, f64 division)."""
+    on the fetched image (integer sum, f64 division). Lane-sharded under a
+    group (`mesh.batch_mesh`): fetch() then gathers, so every rank calls it.
+    """
     dev = resolve_device(device)
     B = len(centroids_list)
+    group, lo, hi = mesh.batch_lanes(B)
     if not isinstance(originals, torch.Tensor):
         originals = torch.from_numpy(
-            np.ascontiguousarray(originals, dtype=np.uint8))
-    orig = originals.to(dev).reshape(B, h * w, 3).to(torch.int32)
-    recs, tots = [], []
-    for b, (xy, cl) in enumerate(zip(centroids_list, colors_list)):
-        rec = _reconstruct_one(xy, cl, w, h, dev)
-        diff = rec.to(torch.int32) - orig[b]
-        tots.append((diff * diff).sum(dtype=torch.int64))
-        recs.append(rec)
-    mses = [float(t) / (w * h) for t in torch.stack(tots).tolist()]
+            np.ascontiguousarray(originals[lo:hi], dtype=np.uint8))
+    else:
+        originals = originals[lo:hi]
+    recs = torch.stack([
+        _reconstruct_one(centroids_list[b], colors_list[b], w, h, dev)
+        for b in range(lo, hi)]).reshape(hi - lo, h, w, 3)
+    mses = mesh.sharded_mse(group, recs, originals.to(dev)).tolist()
 
     def fetch():
-        return [r.reshape(h, w, 3).cpu().numpy() for r in recs]
+        out = recs if group is None else mesh.gather_lanes(group, recs)
+        return list(out.cpu().numpy())
 
     return mses, fetch

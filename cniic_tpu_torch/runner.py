@@ -19,6 +19,13 @@ the round trip -> append a CSV row. Protocol details preserved exactly:
 
 Additions over the reference: per-image wall-clock + aggregate
 megapixels/sec, returned as a summary dict.
+
+Under a process group of several ranks (``parallel/mesh.py``, e.g. the CLI
+under torchrun) every rank computes the same rows, the k-means stages
+lane-sharded, but only rank 0 writes the CSV and the decoded images; the
+groups run one after the other (no encode thread beside the decode, so the
+ranks issue their collectives in one order), and barriers keep a resumed
+run's reads ahead of rank 0's writes.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch.distributed as dist
 
 from . import image_io, native
 from .codecs.base import Codec
+from .parallel import mesh
 
 
 def compute_error(x: np.ndarray, y: np.ndarray) -> float:
@@ -79,10 +88,13 @@ def measure_all(codec: Codec, paths, output_dir: str = "output",
     os.makedirs(output_dir, exist_ok=True)
     csv_path = os.path.join(output_dir, f"{codec.name}.csv")
     res = BenchResult()
+    pg = mesh.world_group()
+    writes = pg is None or dist.get_rank(pg) == 0
+    verbose = verbose and writes
 
     done = set()
+    corrupt = False
     if resume and os.path.exists(csv_path):
-        corrupt = False
         with open(csv_path, newline="") as fh:
             for row in list(csv.reader(fh))[1:]:
                 try:
@@ -97,24 +109,27 @@ def measure_all(codec: Codec, paths, output_dir: str = "output",
                 done.add(row[0])
                 res.rows.append(parsed)
         paths = [p for p in paths if str(p) not in done]
-        if corrupt and done:
-            # rewrite with only the well-formed rows so the appends below
-            # don't merge onto a partial line
-            with open(csv_path, "w", newline="") as fh:
-                w = csv.writer(fh)
-                w.writerow(["name", "compressed_size", "compression_ratio",
-                            "error"])
-                w.writerows(res.rows)
+    if pg is not None:
+        dist.barrier(pg)  # every rank has read the CSV
+    if corrupt and done and writes:
+        # rewrite with only the well-formed rows so the appends below
+        # don't merge onto a partial line
+        with open(csv_path, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["name", "compressed_size", "compression_ratio",
+                        "error"])
+            w.writerows(res.rows)
 
     mode = "a" if done else "w"
-    with open(csv_path, mode, newline="") as fh:
+    with open(csv_path if writes else os.devnull, mode, newline="") as fh:
         writer = csv.writer(fh)
         if not done:
             writer.writerow(["name", "compressed_size", "compression_ratio", "error"])
         if batch <= 1:
             for p in paths:
                 try:
-                    row = _measure_one(codec, p, output_dir, res, verbose)
+                    row = _measure_one(codec, p, output_dir, res, verbose,
+                                       writes)
                 except Exception as e:  # continue with other images (bench.rs:78)
                     res.failures.append((str(p), repr(e)))
                     print(f"error: {p}: {e!r}")
@@ -126,7 +141,7 @@ def measure_all(codec: Codec, paths, output_dir: str = "output",
             paths = list(paths)
             groups = [paths[i : i + batch] for i in range(0, len(paths), batch)]
             env = os.environ.get("CNIIC_PIPELINE", "")
-            pipelined = len(groups) > 1 and (
+            pipelined = pg is None and len(groups) > 1 and (
                 env == "1" or (env != "0" and codec.pipeline_profitable))
             if pipelined:
                 # software pipeline (VERDICT r2 #5, the reference's rayon
@@ -146,7 +161,7 @@ def measure_all(codec: Codec, paths, output_dir: str = "output",
                             fut = ex.submit(_load_and_encode, codec,
                                             groups[gi + 1], res)
                         for row in _verify_group(codec, loaded, output_dir,
-                                                 res, verbose):
+                                                 res, verbose, writes):
                             if row is not None:
                                 writer.writerow(row)
                                 res.rows.append(row)
@@ -154,10 +169,12 @@ def measure_all(codec: Codec, paths, output_dir: str = "output",
                 for group in groups:
                     loaded = _load_and_encode(codec, group, res)
                     for row in _verify_group(codec, loaded, output_dir, res,
-                                             verbose):
+                                             verbose, writes):
                         if row is not None:
                             writer.writerow(row)
                             res.rows.append(row)
+    if pg is not None:
+        dist.barrier(pg)  # rank 0's CSV is whole
     return res
 
 
@@ -191,8 +208,9 @@ def _load_and_encode(codec: Codec, group, res: BenchResult):
 
 
 def _verify_group(codec: Codec, loaded, output_dir: str, res: BenchResult,
-                  verbose: bool):
-    """Pipeline stage 2: decode, verify, save PNGs, yield CSV rows."""
+                  verbose: bool, writes: bool = True):
+    """Pipeline stage 2: decode, verify, save PNGs (when `writes`), yield CSV
+    rows."""
     names, imgs, blobs = loaded
     if blobs is None:
         return
@@ -264,7 +282,9 @@ def _verify_group(codec: Codec, loaded, output_dir: str, res: BenchResult,
                 error = compute_error(img, decoded)
             if error != 0.0:
                 stem = os.path.splitext(os.path.basename(str(p)))[0]
-                image_io.save_png(decoded, os.path.join(output_dir, stem + ".png"))
+                if writes:
+                    image_io.save_png(decoded,
+                                      os.path.join(output_dir, stem + ".png"))
                 if codec.is_lossless:
                     raise AssertionError(
                         f"lossless codec {codec.name} round-trip mismatch (MSE={error})")
@@ -276,7 +296,8 @@ def _verify_group(codec: Codec, loaded, output_dir: str, res: BenchResult,
             print(f"error: {p}: {e!r}")
 
 
-def _measure_one(codec: Codec, path, output_dir: str, res: BenchResult, verbose: bool):
+def _measure_one(codec: Codec, path, output_dir: str, res: BenchResult,
+                 verbose: bool, writes: bool = True):
     if verbose:
         print(f"Processing {path!r}...")
     img = image_io.load_image(path)
@@ -299,7 +320,8 @@ def _measure_one(codec: Codec, path, output_dir: str, res: BenchResult, verbose:
 
     if error != 0.0:
         stem = os.path.splitext(os.path.basename(str(path)))[0]
-        image_io.save_png(decoded, os.path.join(output_dir, stem + ".png"))
+        if writes:
+            image_io.save_png(decoded, os.path.join(output_dir, stem + ".png"))
         if codec.is_lossless:
             raise AssertionError(f"lossless codec {codec.name} round-trip mismatch (MSE={error})")
 

@@ -6,20 +6,58 @@
 * a run over all nine codecs, its suite shrunk to tiny images, prints one
   JSON line with `bench.py`'s keys plus `package` and `device`, no failures
   and `vs_baseline` null;
+* on the same shrunk suite, the per-codec ratio and MSE the port's bench
+  prints equal `bench.py`'s, cell by cell;
+* the nine full-size cells' (ratio, MSE), as both benches print them, are
+  pinned in `FULL_SIZE`; the port's encodes of each cell's first image on
+  the CPU give them, but for the two k-means cells, whose plain versions
+  take minutes at full size: tests/test_torch_cuda.py checks those on the
+  card, as does the bench run there;
 * a CUDA run with no card is refused.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
 from cniic_tpu_torch import bench
+from cniic_tpu_torch.codecs import from_spec
+from cniic_tpu_torch.runner import compute_error
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (ratio %, MSE) of each full-size cell's first image, as bench.py prints
+# them: cluster-colors_32 to zip-back from BENCH_r05.json's tail, the first
+# four from cniic_tpu on the CPU
+FULL_SIZE = {
+    "Hufman": ("9.854", "0.0"),
+    "delta": ("5.875", "0.0"),
+    "hilbert-rle": ("49.861", "0.0"),
+    "hilbert-rle-approx_4": ("28.061", "2.5"),
+    "cluster-colors_32": ("2.575", "71.5"),
+    "voronoi_128": ("0.010", "1258.5"),
+    "hilbert-zip": ("17.111", "0.0"),
+    "zip-dict": ("14.322", "0.0"),
+    "zip-back": ("19.262", "0.0"),
+}
+
+# checked on the card (tests/test_torch_cuda.py)
+KMEANS_CELLS = ("cluster-colors_32", "voronoi_128")
+
+_CELL = re.compile(r"^(\S+): enc .*, ratio ([0-9.]+)%, MSE ([0-9.]+)")
+
+
+def cells(stderr: str) -> dict:
+    """codec name -> (ratio, MSE) as a bench printed them on stderr."""
+    return {m.group(1): m.group(2, 3)
+            for m in map(_CELL.match, stderr.splitlines()) if m}
 
 
 @pytest.fixture(scope="module")
@@ -40,12 +78,31 @@ def test_suite_and_corpus_match_bench_py(jax_bench):
                                       jax_bench.synth_image(b, h, w))
 
 
-def test_tiny_run_all_nine(capsys, monkeypatch):
+TINY = [(s, 40, 2) for s, _, _ in bench.SUITE]
+
+
+def _tiny_run(mod, argv):
+    """(return code, stdout, stderr) of a bench's main() over TINY, one
+    trial."""
+    out, err = io.StringIO(), io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod, "SUITE", TINY)
+        mp.setattr(mod, "TRIALS", 1)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = mod.main(*argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.fixture(scope="module")
+def tiny_port():
+    return _tiny_run(bench, [["--device", "cpu"]])
+
+
+def test_tiny_run_all_nine(tiny_port):
     specs = [s for s, _, _ in bench.SUITE]
-    monkeypatch.setattr(bench, "SUITE", [(s, 40, 2) for s in specs])
-    monkeypatch.setattr(bench, "TRIALS", 1)
-    assert bench.main(["--device", "cpu"]) == 0
-    out = capsys.readouterr().out.strip().splitlines()
+    rc, stdout, _ = tiny_port
+    assert rc == 0
+    out = stdout.strip().splitlines()
     assert len(out) == 1
     res = json.loads(out[0])
     assert "failures" not in res
@@ -68,3 +125,29 @@ def test_cuda_refused_without_a_card():
         pytest.skip("a CUDA card is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="is_available"):
         bench.main([])
+
+
+def test_ratio_and_mse_match_bench_py(jax_bench, tiny_port):
+    rc, _, stderr = _tiny_run(jax_bench, [])
+    assert rc == 0
+    want = cells(stderr)
+    assert len(want) == 9 and cells(tiny_port[2]) == want
+
+
+def test_full_size_cells_match_the_pins():
+    """Each cell's first image at full size through the port on the CPU,
+    formatted as the benches print it (the k-means cells on the card)."""
+    rng = np.random.default_rng(bench.SEED)
+    seen = {}
+    for spec, side, n_imgs in bench.SUITE:
+        imgs = [bench.synth_image(rng, side, side) for _ in range(n_imgs)]
+        codec = from_spec(spec, device="cpu")
+        if codec.name in KMEANS_CELLS:
+            continue
+        blob = codec.encode_batch(imgs[:1])[0]
+        err = compute_error(imgs[0], codec.decode(blob))
+        seen[codec.name] = (f"{len(blob) / (side * side * 24) * 100:.3f}",
+                            f"{err:.1f}")
+    assert seen == {k: v for k, v in FULL_SIZE.items()
+                    if k not in KMEANS_CELLS}
+

@@ -3,7 +3,9 @@ statistics branches), D3 (alone and in K1's last blocks, the loop's one
 launch an iteration), K2 and K3 (both schedules each), D1 (both schedules)
 and D2 (with and without its root table) on the card against their plain
 versions, and the k-means engine and codecs, the gated Hilbert codecs and
-the gated Huffman codecs on the card against the CPU path.
+the gated Huffman codecs on the card against the CPU path. D3 given the
+steal candidates, and the point-sharded k-means on a world of one rank
+under NCCL. The bench's two k-means cells at full size against their pins.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -207,6 +209,81 @@ def test_d3_matches_plain_version(cuda, max_iters):
     assert int(want[9].max()) == (2**31 + 8 if max_iters == 2**31 + 8
                                   else 2**31 + 9)
     assert int(want[9][1]) == 2**31 + 7   # the frozen lane stopped counting
+
+
+def test_d3_given_candidates_matches_plain_version(cuda):
+    """D3 in the mode the point-sharded k-means runs: the empty clusters
+    take the candidates given (here unrelated to ptsT), not a gather."""
+    ops = _d3_operands(9)
+    B, k, d = ops[4].shape
+    stolen = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 1024, (B, k, d)).astype(np.int32))
+    want = [t.clone() for t in ops]
+    got = [t.to(cuda) for t in ops]
+    for _ in range(2):
+        tkk.step_update_ref(*want, 64, 2**40, stolen=stolen)
+        before = tkk.step_update.launches
+        tkk.step_update(*got, 64, 2**40, stolen=stolen.to(cuda))
+        torch.cuda.synchronize()
+        assert tkk.step_update.launches == before + 1
+        for g, w_ in zip(got, want):
+            assert torch.equal(g.cpu(), w_)
+    empty = ops[0][:, :, d] == 0
+    assert bool(empty.any())
+    assert torch.equal(want[4][empty & (ops[8] != 0)[:, None]],
+                       stolen[empty & (ops[8] != 0)[:, None]])
+
+
+def test_sharded_kmeans_on_one_nccl_rank(cuda):
+    """`sharded_kmeans` on a world of one under NCCL (K1 over the shard, the
+    all-reduce, D3 given the candidates) equals `kmeans` on the card, at a
+    shape with empty clusters."""
+    import torch.distributed as dist
+
+    from cniic_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(263)
+    few = rng.integers(0, 4, (20_000, 2))
+    w = rng.integers(1, 50, 20_000)
+    voro = rng.integers(0, 1024, (300_000, 5))
+    group = mesh.make_mesh(1, device="cuda")
+    try:
+        for pts, k, wts in ((few, 16, w), (voro, 128, None)):
+            want = tkm.kmeans(pts, k, weights=wts, device="cuda")
+            before = (tkk.assign_stats.launches, tkk.step_update.launches)
+            got = mesh.sharded_kmeans(group, pts, k, weights=wts, block=256,
+                                      device="cuda")
+            assert got[2] == want[2]
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+            assert tkk.assign_stats.launches - before[0] >= got[2]
+            assert tkk.step_update.launches - before[1] >= got[2]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_bench_kmeans_cells_match_the_pins(cuda):
+    """The first image of the bench's cluster-colors_32 and voronoi_128
+    cells at 1024^2, encoded and decoded on the card, prints the pinned
+    (ratio, MSE)."""
+    from test_torch_bench import FULL_SIZE, KMEANS_CELLS
+
+    from cniic_tpu_torch import bench
+    from cniic_tpu_torch.runner import compute_error
+
+    rng = np.random.default_rng(bench.SEED)
+    seen = {}
+    for spec, side, n_imgs in bench.SUITE:
+        imgs = [bench.synth_image(rng, side, side) for _ in range(n_imgs)]
+        codec = from_spec(spec, device="cuda")
+        if codec.name in KMEANS_CELLS:
+            blob = codec.encode_batch(imgs)[0]
+            err = compute_error(imgs[0], codec.decode(blob))
+            seen[codec.name] = (f"{len(blob) / (side * side * 24) * 100:.3f}",
+                                f"{err:.1f}")
+        if len(seen) == len(KMEANS_CELLS):
+            break
+    assert seen == {name: FULL_SIZE[name] for name in KMEANS_CELLS}
 
 
 def _fused_state(ops, dev, thresh=0):

@@ -46,6 +46,8 @@ def _port_modules():
 def test_import_loads_no_jax_and_no_jax_package():
     mods = [m for m in _port_modules() if not m.endswith("__main__")]
     assert "cniic_tpu_torch.ops.kmeans_kernel" in mods
+    assert {"cniic_tpu_torch.parallel.mesh", "cniic_tpu_torch.parallel.launch",
+            "cniic_tpu_torch.entry"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
