@@ -103,12 +103,28 @@ Phases:
    cluster-colors(32) `encode_batch` over phase 4's 8 images of 1024^2,
    lane-sharded: streams and fused MSEs equal phase 4's; (c) `entry()`'s
    fn on the card equal to its CPU run; (d) `dryrun_multichip(1)` on the
-   NCCL group. K1 and D3 must have launched on both sharded worlds.
+   NCCL group. K1 and D3 must have launched on both sharded worlds;
+7. the experiment layer: (a) `synth_corpus` makes the 12 --midtex images
+   of 2040x1356 (the images `output_midtex`'s CSVs were computed from:
+   image i only comes from generating 0..i in order); (b) `sweep.main`
+   runs the 22-config matrix over them, overlapped, `--device=cuda
+   --batch=8`, the kernel counts set to 0 just before and read just after;
+   (c) columns 2-4 of every row of the 22 CSVs (264) must equal
+   `output_midtex/<name>.csv`'s, matched by image basename, and each
+   difference is printed; (d) K1 must have launched in every k-means
+   config of the device queue and D3 never alone: each config's
+   iterations, K1 launches, K1 branch (packed or unpacked; shared-memory
+   or global statistics) and seconds are printed; (e) the two queues'
+   wall times, the total and the configs' serial sum; (f) `northstar.main`
+   over 16 --ns images of 1024^2 at --chunk=8 must verify every round trip,
+   and prints each codec's encode and decode MP/s. In a rehearsal: 2 plain
+   images of 256^2, 4 configs, no reference comparison.
 
 It ends with a line holding the card's name and power limit, a JSON line
 describing each kernel of the paths (K1's and D3's with their launches on
-phase 6's sharded paths, `launches_sharded`, and in each of its runs,
-`launches_phase_6`), and the JSON result line. Any failure
+phase 6's sharded paths, `launches_sharded`, in each of its runs,
+`launches_phase_6`, and over phase 7's sweep, `launches_phase_7`), and the
+JSON result line. Any failure
 raises (non-zero exit, no result line). Without a card it fails unless
 --rehearse-cpu is given, and then its last line says "platform": "cpu".
 """
@@ -134,11 +150,11 @@ import numpy as np
 import torch
 
 from cniic_tpu_torch import (_build, hilbert, huffman, kmeans_profile, native,
-                             runner)
-from cniic_tpu_torch.codecs import VoronoiCluster, from_spec
+                             northstar, runner, sweep, synth_corpus)
+from cniic_tpu_torch.codecs import ClusterColors, VoronoiCluster, from_spec
 from cniic_tpu_torch.codecs import delta as delta_codec
 from cniic_tpu_torch.codecs.base import pixels_row_major
-from cniic_tpu_torch.image_io import save_png
+from cniic_tpu_torch.image_io import load_image, save_png
 from cniic_tpu_torch.ops import (approx_rle, bitpack, histogram, hufdec,
                                  kmeans_kernel)
 from cniic_tpu_torch.ops import kmeans as km
@@ -180,6 +196,17 @@ SIZES = {
 # (the golden 4K image), and its k
 SIZES[False].update(mesh_img=(2160, 3840), mesh_k=128)
 SIZES[True].update(mesh_img=(54, 96), mesh_k=16)
+# phase 7: the sweep's corpus (12 --midtex images of 2040x1356, the
+# images of output_midtex's rows; in a rehearsal 2 plain images of 256^2),
+# its configs (None: the 22 of the matrix) and the north-star corpus
+SIZES[False].update(exp_n=12, exp_configs=None, ns_n=16, ns_side=1024)
+SIZES[True].update(exp_n=2, exp_side=256,
+                   exp_configs=("hufman", "hilbert(rle(4))",
+                                "cluster-colors(16)", "voronoi(64)"),
+                   ns_n=16, ns_side=64)
+# the committed matrix the sweep's rows are held against
+MIDTEX_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "output_midtex")
 
 # (allow, count c, t0, t1, t2): a run of c pixels then a pixel x with
 # t = S - c*x, where the f32 distance sum fma(t2, t2, fma(t0, t0, t1*t1))
@@ -1999,6 +2026,149 @@ def phase_multi_device(imgs, runs, dev, card, sz):
     return {"launches": launches, "total": total, "timings": timings}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the experiment layer
+# ---------------------------------------------------------------------------
+
+def _k1_branch(codec, img_shape, dev) -> str:
+    """Which of K1's branches a k-means codec's step takes on an image."""
+    h, w = img_shape
+    pmax = ((w - 1, h - 1, 255, 255, 255) if isinstance(codec, VoronoiCluster)
+            else (255, 255, 255))
+    path = ("packed" if kmeans_kernel.packed_path(pmax, codec.n)
+            else "unpacked")
+    if dev.type != "cuda":
+        return path
+    smem = kmeans_kernel.stats_in_smem(len(pmax), codec.n)
+    return f"{path}, {'shared-memory' if smem else 'global'} statistics"
+
+
+def _quiet(fn, *args, **kw):
+    """Run fn with its standard output captured; returns (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = fn(*args, **kw)
+    return got, buf.getvalue()
+
+
+def phase_experiment(dev, card, sz, tmp):
+    """Phase 7 (see the module docstring); returns K1's and D3's launches
+    over the sweep and each k-means config's iterations, launches, seconds
+    and K1 branch."""
+    rehearse = dev.type != "cuda"
+    corpus = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    args = ([corpus, str(sz["exp_n"]), str(sz["exp_side"])] if rehearse
+            else [corpus, str(sz["exp_n"]), "--midtex"])
+    _quiet(synth_corpus.main, args)
+    paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus))
+    check(len(paths) == sz["exp_n"], f"synth_corpus made {len(paths)} images")
+    shape = load_image(paths[0]).shape[:2]
+    print(f"phase 7: the experiment layer on {card}")
+    print(f"  (a) synth_corpus {' '.join(args[1:])}: {len(paths)} images of "
+          f"{shape[1]}x{shape[0]} in {time.perf_counter() - t0:.1f} s")
+
+    k1, d3 = kmeans_kernel.assign_stats, kmeans_kernel.step_update
+    counters = {"K1": k1, "D3": d3, "K2": approx_rle.wide_records,
+                "K3": approx_rle.batch_records, "D1": bitpack.pack_words,
+                "D2": hufdec.walk}
+    per = {}
+    measure_all = runner.measure_all
+
+    def traced(codec, paths, **kw):
+        if not isinstance(codec, (ClusterColors, VoronoiCluster)):
+            return measure_all(codec, paths, **kw)
+        before = (k1.launches, d3.launches, log.iters, log.loops)
+        t1 = time.perf_counter()
+        res = measure_all(codec, paths, **kw)
+        per[codec.name] = {
+            "seconds": time.perf_counter() - t1,
+            "iterations": log.iters - before[2], "loops": log.loops - before[3],
+            "k1": k1.launches - before[0], "d3": d3.launches - before[1],
+            "branch": _k1_branch(codec, shape, dev)}
+        return res
+
+    configs = sz["exp_configs"]
+    out_dir = os.path.join(tmp, "sweep")
+    argv = ([f"--device={dev.type}", "--batch=8", f"--out={out_dir}"]
+            + ([f"--configs={','.join(configs)}"] if configs else []) + paths)
+    results, seconds = {}, {}
+    for c in counters.values():
+        c.launches = 0
+    runner.measure_all = traced
+    try:
+        with kmeans_profile.IterLog() as log:
+            t0 = time.perf_counter()
+            rc, text = _quiet(sweep.main, argv, results, seconds)
+            wall = time.perf_counter() - t0
+    finally:
+        runner.measure_all = measure_all
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"  (b) sweep.main({' '.join(argv[:3])} ...), overlapped, over "
+          f"{len(paths)} images:")
+    for line in text.splitlines():
+        print(f"      {line}")
+    check(rc == 0, f"the sweep failed (rc {rc})")
+    dev_specs, host_specs = sweep.split_configs(configs)
+    names = [from_spec(c, device="cpu").name for c in dev_specs + host_specs]
+    if rehearse:
+        print("  (c) no reference comparison in a rehearsal")
+    else:
+        diffs = sweep.diff_rows(out_dir, MIDTEX_REF, names,
+                                images=[os.path.basename(p) for p in paths])
+        for d in diffs:
+            print(f"      differs: {d} (on {card})")
+        check(not diffs, f"{len(diffs)} sweep rows differ from "
+              "output_midtex's")
+        print(f"  (c) all {len(names) * len(paths)} rows ({len(names)} CSVs x "
+              f"{len(paths)} images): compressed_size, compression_ratio and "
+              "error equal output_midtex's exactly")
+    for name in (n for n in names if n in per):
+        r = per[name]
+        print(f"  (d) {name}: {r['iterations']} iterations in {r['loops']} "
+              f"loops, K1 launches {r['k1']} ({r['branch']}), D3 launches "
+              f"{r['d3']}, {r['seconds']:.1f} s on {card}")
+        if dev.type == "cuda":
+            check(r["k1"] > 0, f"{name}: K1 never launched on the device "
+                  "queue")
+    print(f"  (d) launches over the sweep: "
+          + ", ".join(f"{n} {v}" for n, v in launches.items()))
+    if dev.type == "cuda":
+        check(launches["D3"] == 0, "D3 launched alone on the device queue")
+    serial = sum(seconds.values())
+    print(f"  (e) on {card}: device queue {results['device']:.1f} s, host "
+          f"queue {results['host']:.1f} s, total {wall:.1f} s overlapped; the "
+          f"configs' times sum to {serial:.1f} s (the serial estimate)")
+
+    ns_dir = os.path.join(tmp, "ns")
+    t0 = time.perf_counter()
+    _quiet(synth_corpus.main, [ns_dir, str(sz["ns_n"]), "--ns",
+                               str(sz["ns_side"])])
+    ns_paths = sorted(os.path.join(ns_dir, f) for f in os.listdir(ns_dir))
+    made = time.perf_counter() - t0
+    out = os.path.join(tmp, "northstar.json")
+    t0 = time.perf_counter()
+    rc, text = _quiet(northstar.main, [f"--device={dev.type}", "--chunk=8",
+                                       f"--out={out}"] + ns_paths)
+    check(rc == 0, f"northstar failed (rc {rc}):\n{text}")
+    with open(out) as fh:
+        ns = json.load(fh)
+    print(f"  (f) northstar --chunk=8 over {len(ns_paths)} --ns images of "
+          f"{sz['ns_side']}^2 (made in {made:.1f} s), every round trip "
+          f"verified, {time.perf_counter() - t0:.1f} s on {card}: encode "
+          f"geomean {ns['encode_geomean_mps']} MP/s, decode geomean "
+          f"{ns['decode_geomean_mps']} MP/s, vs_baseline {ns['vs_baseline']} "
+          f"({ns['baseline']})")
+    for name in ns["per_codec_mps"]:
+        print(f"      {name}: encode {ns['per_codec_mps'][name]} MP/s, "
+              f"decode {ns['per_codec_decode_mps'][name]} MP/s")
+    return {"launches": launches, "configs": per,
+            "queues_s": {**results, "total": wall, "serial_sum": serial},
+            "northstar": {k: ns[k] for k in (
+                "encode_geomean_mps", "decode_geomean_mps", "per_codec_mps",
+                "per_codec_decode_mps", "vs_baseline")}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -2038,6 +2208,9 @@ def main() -> int:
         took("phase 5")
     multi = phase_multi_device(imgs, runs, dev, card, sz)
     took("phase 6")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exp_") as tmp:
+        exp = phase_experiment(dev, card, sz, tmp)
+    took("phase 7")
 
     if dev.type == "cuda":
         print(run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2072,7 +2245,10 @@ def main() -> int:
         "step": step_a, "step_cluster_colors": step_b,
         "launches_sharded": multi["total"][0],
         "launches_phase_6": {n: v[0] for n, v in multi["launches"].items()},
-        "mesh": multi["timings"]}]
+        "mesh": multi["timings"],
+        "launches_phase_7": exp["launches"]["K1"],
+        "phase_7": {"configs": exp["configs"], "queues_s": exp["queues_s"],
+                    "northstar": exp["northstar"]}}]
     # D3 runs on the main path inside K1's launches and never as a launch of
     # its own: its time there is the one launch's less K1's, kernels alone
     d3_ms, d3_plain, d3_b, d3_by, d3_call = timings["D3"]
@@ -2087,7 +2263,8 @@ def main() -> int:
         "fused_tail_ms_cluster_colors": step_b["fused_tail_ms"],
         "alone_ms": d3_ms, "alone_call_ms": d3_call,
         "launches_sharded": multi["total"][1],
-        "launches_phase_6": {n: v[1] for n, v in multi["launches"].items()}})
+        "launches_phase_6": {n: v[1] for n, v in multi["launches"].items()},
+        "launches_phase_7": exp["launches"]["D3"]})
     if windows:
         kernels[0]["encode_windows"] = {
             spec: {k: w[k] for k in ("wall_s", "busy_share", "k1_share",

@@ -9,7 +9,9 @@ engine; for delta the diff keys, the fused gather+diff+histogram pass and
 the fused decode; zip-back for `zip(back)`. The C source is the port's own
 byte-for-byte copy of the reference's one file
 (``cniic_tpu/native/cniic_native.c``), compiled into this package's
-``_build/`` directory and rebuilt whenever the source is newer.
+``_build/`` directory and rebuilt whenever the source is newer; with
+``CNIIC_NATIVE_LIB`` set, the library it names is loaded instead, as the
+loader of ``cniic_tpu/native`` does.
 All entry points release the GIL for the duration of the call (plain ctypes
 semantics), so host-side codec work can overlap device work from other
 threads.
@@ -44,7 +46,14 @@ def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = _build.load("cniic_native", [_SRC], _commands())
+    # CNIIC_NATIVE_LIB names an alternate prebuilt library (the ASan fuzz
+    # build, `make asan-fuzz`), loaded as-is and never rebuilt. Read here,
+    # once, at first use, so a variable set after import is seen.
+    override = os.environ.get("CNIIC_NATIVE_LIB")
+    if override:
+        lib = ctypes.CDLL(override)
+    else:
+        lib = _build.load("cniic_native", [_SRC], _commands())
 
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)

@@ -20,8 +20,9 @@ with D3 run by the last block of each lane (``prepare_step``).
   moved)`` it writes into the caller's buffers (``new`` may be ``cur``;
   ``sums`` and ``moved`` are added to and must start at zero).
 * ``assign_stats_ref`` is K1's plain PyTorch version: blocked over points,
-  int64 distances, ``torch.argmin`` with the strict-move rule, and
-  ``index_add_`` for the statistics.
+  exact scores by one float64 matrix product a block (integers below
+  2^53), ``torch.argmin`` with the strict-move rule, and ``index_add_``
+  for the statistics.
 * ``step_update`` is D3's wrapper for the update alone, one block a lane
   (same rules, ``step_update.launches``); ``step_update_ref`` its plain
   version, the torch ops of the engine's loop body gathered into one
@@ -228,34 +229,47 @@ assign_stats.launches = 0
 
 
 def assign_stats_ref(ptsT, w, cur, cents, n, act):
-    """The plain PyTorch version of the step (any device)."""
+    """The plain PyTorch version of the step (any device).
+
+    A point's distances are scored as |c|^2 - 2 p.c, one float64 matrix
+    product a block of points. Every product and partial sum is an integer
+    below 2^53 (checked from the data; the wrapper's bound keeps them below
+    2^32), so the scores are exact in any summation order, and they rank
+    the centroids as the int64 squared distances do (|p|^2 is the same for
+    every centroid of a point): the first minimum, and a move only to a
+    strictly closer centroid."""
     B, d, n_max = ptsT.shape
     k = cents.shape[1]
     dev = ptsT.device
     new = torch.zeros((B, n_max), dtype=torch.int32, device=dev)
     sums = torch.zeros((B, k, d + 1), dtype=torch.int64, device=dev)
     moved = torch.zeros((B,), dtype=torch.int32, device=dev)
+    pm = int(ptsT.abs().max()) if ptsT.numel() else 0
+    cm = int(cents.abs().max()) if cents.numel() else 0
+    if d * cm * (cm + 2 * pm) >= 2**53:
+        raise ValueError("assign_stats_ref: coordinates too large for exact "
+                         "float64 scores")
     block = max(1, _REF_TILE[dev.type] // k)
     for b, (nb, ab) in enumerate(zip(n.tolist(), act.tolist())):
         if ab == 0:
             continue
-        c = cents[b].to(torch.int64)                      # (k, d)
+        c = cents[b].to(torch.float64)                    # (k, d)
+        cc = (c * c).sum(1)                               # |c|^2
+        m2c = (-2.0 * c).T.contiguous()                   # (d, k)
         for s in range(0, nb, block):
             e = min(s + block, nb)
-            p = ptsT[b, :, s:e].to(torch.int64)           # (d, m)
-            d2 = torch.zeros((e - s, k), dtype=torch.int64, device=dev)
-            for j in range(d):
-                t = p[j][:, None] - c[:, j][None, :]
-                d2.addcmul_(t, t)
-            best = torch.argmin(d2, dim=1)                # first minimum
+            p = ptsT[b, :, s:e]                           # (d, m)
+            score = torch.addmm(cc, p.T.to(torch.float64), m2c)
+            best = torch.argmin(score, dim=1)             # first minimum
             c0 = cur[b, s:e].to(torch.int64)
-            best_d2 = d2.gather(1, best[:, None])[:, 0]
-            cur_d2 = d2.gather(1, c0[:, None])[:, 0]
-            nw = torch.where(best_d2 < cur_d2, best, c0)  # strictly closer
+            best_s = score.gather(1, best[:, None])[:, 0]
+            cur_s = score.gather(1, c0[:, None])[:, 0]
+            nw = torch.where(best_s < cur_s, best, c0)    # strictly closer
             new[b, s:e] = nw.to(torch.int32)
             moved[b] += (nw != c0).sum().to(torch.int32)
             wv = w[b, s:e].to(torch.int64)
-            feats = torch.cat([p * wv[None, :], wv[None, :]], dim=0).T
+            feats = torch.cat([p.to(torch.int64) * wv[None, :],
+                               wv[None, :]], dim=0).T
             sums[b].index_add_(0, nw, feats)
     return new, sums, moved
 

@@ -377,9 +377,9 @@ def sharded_mse(group, x, y) -> torch.Tensor:
 
     x, y: this rank's lanes (uint8 [b, h, w, 3], arrays or tensors; all
     ranks the same b). Returns float64 [ranks * b] on x's device, in rank
-    order: the exact integer sum of squared differences over f64 h*w, equal
-    to JAX's f64 form because every partial sum is an integer below 2^53.
-    With group None, this process's batch alone."""
+    order: the exact integer sum of squared differences divided by h*w,
+    correctly rounded, which is JAX's f64 form (every partial sum there is
+    an integer below 2^53). With group None, this process's batch alone."""
     x, y = (torch.as_tensor(np.ascontiguousarray(a)) if isinstance(
         a, np.ndarray) else a for a in (x, y))
     y = y.to(x.device)
@@ -387,5 +387,9 @@ def sharded_mse(group, x, y) -> torch.Tensor:
     diff = x.to(torch.int32) - y.to(torch.int32)
     tot = (diff * diff).sum(dim=tuple(range(1, diff.dim())),
                             dtype=torch.int64)
-    mse = tot.to(torch.float64) / (h * w)
-    return mse if group is None else gather_lanes(group, mse)
+    if group is not None:
+        tot = gather_lanes(group, tot)
+    # the quotient is taken on the host: CUDA divides a tensor by a host
+    # scalar as a multiply by its reciprocal, at times one bit off
+    return torch.tensor([t / (h * w) for t in tot.tolist()],
+                        dtype=torch.float64, device=x.device)

@@ -5,7 +5,10 @@
   gives the same images;
 * a run over all nine codecs, its suite shrunk to tiny images, prints one
   JSON line with `bench.py`'s keys plus `package` and `device`, no failures
-  and `vs_baseline` null;
+  and, with no host baseline file, `vs_baseline` null;
+* with a host baseline file covering the nine codecs, `vs_baseline` is the
+  geomean of the per-codec speedups over it and its kind names the file;
+  a file that misses a codec gives null;
 * on the same shrunk suite, the per-codec ratio and MSE the port's bench
   prints equal `bench.py`'s, cell by cell;
 * the nine full-size cells' (ratio, MSE), as both benches print them, are
@@ -81,13 +84,15 @@ def test_suite_and_corpus_match_bench_py(jax_bench):
 TINY = [(s, 40, 2) for s, _, _ in bench.SUITE]
 
 
-def _tiny_run(mod, argv):
+def _tiny_run(mod, argv, baseline=None):
     """(return code, stdout, stderr) of a bench's main() over TINY, one
-    trial."""
+    trial; `baseline` replaces the port's host baseline file."""
     out, err = io.StringIO(), io.StringIO()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(mod, "SUITE", TINY)
         mp.setattr(mod, "TRIALS", 1)
+        if baseline is not None:
+            mp.setattr(mod, "BASELINE", baseline)
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = mod.main(*argv)
     return rc, out.getvalue(), err.getvalue()
@@ -95,7 +100,8 @@ def _tiny_run(mod, argv):
 
 @pytest.fixture(scope="module")
 def tiny_port():
-    return _tiny_run(bench, [["--device", "cpu"]])
+    return _tiny_run(bench, [["--device", "cpu"]],
+                     baseline=os.path.join(REPO, "no-such-baseline.json"))
 
 
 def test_tiny_run_all_nine(tiny_port):
@@ -118,6 +124,29 @@ def test_tiny_run_all_nine(tiny_port):
         "cluster-colors_32", "voronoi_128", "hilbert-zip", "zip-dict",
         "zip-back"]
     assert all(v >= 0 for v in res["per_codec_mps"].values())
+
+
+def test_vs_baseline_reads_the_host_file(tmp_path):
+    names = list(FULL_SIZE)
+    path = tmp_path / "BASELINE_HOST_H100.json"
+    path.write_text(json.dumps({"per_codec": {
+        n: {"encode_mps": 1.0, "decode_mps": 1.0} for n in names}}))
+    rc, stdout, stderr = _tiny_run(bench, [["--device", "cpu"]],
+                                   baseline=str(path))
+    assert rc == 0
+    res = json.loads(stdout)
+    # speedups over 1 MP/s are the rates: their geomean is the value
+    assert res["vs_baseline"] == res["value"]
+    assert res["vs_baseline_kind"] == "BASELINE_HOST_H100.json"
+    assert stderr.count("x host") == 9
+    # a file that misses a codec, or a suite a codec failed in, gives null
+    enc = {n: 2.0 for n in names}
+    base = {n: {"encode_mps": 0.5} for n in names}
+    assert bench.vs_baseline(enc, base)[0] == pytest.approx(4.0)
+    assert bench.vs_baseline(enc, dict(list(base.items())[1:])) == (None,
+                                                                    "none")
+    assert bench.vs_baseline(dict(list(enc.items())[1:]), base) == (None,
+                                                                    "none")
 
 
 def test_cuda_refused_without_a_card():

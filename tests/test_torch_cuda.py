@@ -6,6 +6,8 @@ versions, and the k-means engine and codecs, the gated Hilbert codecs and
 the gated Huffman codecs on the card against the CPU path. D3 given the
 steal candidates, and the point-sharded k-means on a world of one rank
 under NCCL. The bench's two k-means cells at full size against their pins.
+The sweep's device queue (cluster-colors(16..256), voronoi(64..2048)) over
+`mid_0000` against the committed `output_midtex` rows.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -906,3 +908,44 @@ def test_gated_huffman_codecs_match_cpu(cuda, monkeypatch, gate):
             if on_card.is_lossless:
                 np.testing.assert_array_equal(dec, im)
         assert counter.launches > before, spec
+
+
+def test_midtex_kmeans_rows_on_the_card(cuda, tmp_path):
+    """`mid_0000` (remade by the port's generator) through the sweep's
+    device queue on the card gives the committed `output_midtex` rows of
+    cluster-colors(16..256) and voronoi(64..2048) exactly: K1's unpacked
+    path from k = 512 and its global statistics from k = 1024, at the
+    DIV2K shape."""
+    import os
+
+    from cniic_tpu_torch import sweep, synth_corpus
+
+    ref = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "output_midtex")
+    assert not synth_corpus.main([str(tmp_path / "m"), "1", "--midtex"])
+    out = tmp_path / "out"
+    before = tkk.assign_stats.launches
+    assert sweep.main(["--device=cuda", "--batch=8", f"--out={out}",
+                       f"--configs={','.join(sweep.DEVICE_CONFIGS)}",
+                       str(tmp_path / "m" / "mid_0000.png")]) == 0
+    assert tkk.assign_stats.launches > before
+    names = [from_spec(c, device="cpu").name for c in sweep.DEVICE_CONFIGS]
+    assert sweep.diff_rows(out, ref, names, images=["mid_0000.png"]) == []
+
+
+@pytest.mark.parametrize("h,w", [(20, 50), (1356, 2040)])
+def test_fused_mse_is_the_correctly_rounded_quotient(cuda, h, w):
+    """The fused MSE on the card is the exact integer sum over h*w rounded
+    once, as JAX's and the CPU's are: a multiply by the reciprocal of h*w
+    (CUDA's division by a host scalar) is one bit off for many sums, 27 of
+    the 72 voronoi rows of the midtex matrix."""
+    from cniic_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(21)
+    b = 512 if h * w < 10_000 else 4
+    x = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    y = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    got = mesh.sharded_mse(None, torch.from_numpy(x).to(cuda),
+                           torch.from_numpy(y).to(cuda)).cpu().tolist()
+    tot = [int(((a.astype(np.int64) - c) ** 2).sum()) for a, c in zip(x, y)]
+    assert got == [t / (h * w) for t in tot]

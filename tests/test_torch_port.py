@@ -48,6 +48,9 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert "cniic_tpu_torch.ops.kmeans_kernel" in mods
     assert {"cniic_tpu_torch.parallel.mesh", "cniic_tpu_torch.parallel.launch",
             "cniic_tpu_torch.entry"} <= set(mods)
+    assert {f"cniic_tpu_torch.{m}" for m in (
+        "synth_corpus", "sweep", "measure_baseline", "northstar",
+        "convergence_study")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -96,6 +99,44 @@ def test_native_builds_read_only_the_port_sources(monkeypatch):
     with open(native._SRC, "rb") as a, open(os.path.join(
             REPO, "cniic_tpu", "native", "cniic_native.c"), "rb") as b:
         assert a.read() == b.read()
+
+
+def test_native_lib_override_is_loaded_as_is(tmp_path, monkeypatch):
+    """CNIIC_NATIVE_LIB names a prebuilt C runtime (the ASan fuzz build),
+    read at first use, loaded as it is and never built."""
+    import shutil
+
+    from cniic_tpu_torch import _build, native
+
+    native._load()  # the library the port builds, copied as the prebuilt one
+    alt = tmp_path / "libcniic_alt.so"
+    shutil.copy(_build.lib_path("cniic_native"), alt)
+
+    def no_build(*args):
+        raise AssertionError("CNIIC_NATIVE_LIB set, but the runtime was built")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setenv("CNIIC_NATIVE_LIB", str(alt))  # after the import
+    assert native._load()._name == str(alt)
+    a = np.arange(30, dtype=np.uint8)
+    assert native.mse_sum_u8(a, a[::-1].copy()) == int(
+        ((a.astype(np.int64) - a[::-1]) ** 2).sum())
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setenv("CNIIC_NATIVE_LIB", str(tmp_path / "missing.so"))
+    with pytest.raises(OSError):
+        native._load()
+
+
+def test_convergence_study_big_refused_without_a_card(capsys):
+    """`convergence_study big` defaults to the card and is refused without
+    one (the sweep's and northstar's refusals are in their own files)."""
+    from cniic_tpu_torch import convergence_study
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: nothing to refuse")
+    assert convergence_study.main(["big"]) == 1
+    assert "Device unavailable" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
