@@ -119,12 +119,30 @@ Phases:
    over 16 --ns images of 1024^2 at --chunk=8 must verify every round trip,
    and prints each codec's encode and decode MP/s. In a rehearsal: 2 plain
    images of 256^2, 4 configs, no reference comparison.
+8. campaigns and profiles (`cniic_tpu_torch.experiments`), every kernel
+   count set to 0 before and read after: (a) `fuzz_campaign.main` with a
+   fixed seed and 30 mutated streams a family over the nine families, then
+   hufman and delta under CNIIC_DEVICE_HUF_DECODE=1 (`--gates`), every
+   blob also decoded on the CPU (`--against=cpu`): no finding, every
+   outcome equal to the CPU's (raised, or equal pixels), D2 decoded
+   mutated payloads and `walk_kernel` launched; (b)
+   `roundtrip_campaign.main` over seeds 1..10 on the card with no gate and
+   with `--gates=k2,k3,d1,d2`, and on the CPU: no finding, K1 launched in
+   the first and K1, K2, K3, D1 and D2 in the gated run, and each spec's
+   stream hashes equal the CPU run's (under k3 hilbert(rle(3))'s batch
+   lanes are held against K3's plain route inside the run); (c)
+   `profile_clusterc.main` (hist / kmeans / parts / huf) and
+   `kmeans_phase_probe.main` (prep / upload / loop windows / fetch of
+   cluster-colors(32) and voronoi(128)) over phase 4's 9 images, each
+   line beside the card's name and power limit. In a rehearsal: 8 streams
+   a family, one round-trip seed.
 
 It ends with a line holding the card's name and power limit, a JSON line
 describing each kernel of the paths (K1's and D3's with their launches on
 phase 6's sharded paths, `launches_sharded`, in each of its runs,
-`launches_phase_6`, and over phase 7's sweep, `launches_phase_7`), and the
-JSON result line. Any failure
+`launches_phase_6`, and over phase 7's sweep, `launches_phase_7`; every
+kernel's launches over phase 8, `launches_phase_8`, and K1's row the
+phase-8 profiles), and the JSON result line. Any failure
 raises (non-zero exit, no result line). Without a card it fails unless
 --rehearse-cpu is given, and then its last line says "platform": "cpu".
 """
@@ -154,6 +172,8 @@ from cniic_tpu_torch import (_build, hilbert, huffman, kmeans_profile, native,
 from cniic_tpu_torch.codecs import ClusterColors, VoronoiCluster, from_spec
 from cniic_tpu_torch.codecs import delta as delta_codec
 from cniic_tpu_torch.codecs.base import pixels_row_major
+from cniic_tpu_torch.experiments import (fuzz_campaign, kmeans_phase_probe,
+                                         profile_clusterc, roundtrip_campaign)
 from cniic_tpu_torch.image_io import load_image, save_png
 from cniic_tpu_torch.ops import (approx_rle, bitpack, histogram, hufdec,
                                  kmeans_kernel)
@@ -204,6 +224,11 @@ SIZES[True].update(exp_n=2, exp_side=256,
                    exp_configs=("hufman", "hilbert(rle(4))",
                                 "cluster-colors(16)", "voronoi(64)"),
                    ns_n=16, ns_side=64)
+# phase 8: the fuzz campaign's seed and trials a family, the round-trip
+# campaign's seed0 and trials (seeds seed0+1..seed0+trials; the rehearsal's
+# seed 19 has small images, since the gated plain versions are slow)
+SIZES[False].update(fuzz_seed=2024, fuzz_trials=30, rt_seed0=0, rt_trials=10)
+SIZES[True].update(fuzz_seed=2024, fuzz_trials=8, rt_seed0=18, rt_trials=1)
 # the committed matrix the sweep's rows are held against
 MIDTEX_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "output_midtex")
@@ -2169,6 +2194,134 @@ def phase_experiment(dev, card, sz, tmp):
                 "per_codec_decode_mps", "vs_baseline")}}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: campaigns and profiles
+# ---------------------------------------------------------------------------
+
+def _last_json(text: str, prefix: str = "") -> dict:
+    """The JSON object on the last line of a module's output (after
+    `prefix`)."""
+    last = text.strip().splitlines()[-1]
+    check(last.startswith(prefix), f"no summary line: {last!r}")
+    return json.loads(last[len(prefix):])
+
+
+def _reprint(text: str, skip_last: bool = True) -> None:
+    lines = text.strip().splitlines()
+    for line in lines[:-1] if skip_last else lines:
+        print(f"      {line}")
+
+
+def phase_campaigns(paths, dev, card, sz, tmp):
+    """Phase 8 (see the module docstring) over phase 4's PNGs `paths`;
+    returns every kernel's launches over the phase and the two profiles'
+    reports."""
+    on_card = dev.type == "cuda"
+    counters = {"K1": kmeans_kernel.assign_stats,
+                "D3": kmeans_kernel.step_update, "K2": approx_rle.wide_records,
+                "K3": approx_rle.batch_records, "D1": bitpack.pack_words,
+                "D2": hufdec.walk}
+    for c in counters.values():
+        c.launches = 0
+    out = os.path.join(tmp, "findings")
+    print(f"phase 8: campaigns and profiles on {card}")
+
+    t0 = time.perf_counter()
+    argv = [f"--device={dev.type}", f"--seed={sz['fuzz_seed']}",
+            f"--trials={sz['fuzz_trials']}", "--gates", "--against=cpu",
+            f"--out={out}"]
+    rc, text = _quiet(fuzz_campaign.main, argv)
+    _reprint(text)
+    fuzz = _last_json(text, "campaign done: ")
+    check(rc == 0 and fuzz["findings"] == 0,
+          f"the fuzz campaign has {fuzz['findings']} finding(s)")
+    gated = [fuzz["families"][f"{s}+D2"] for s in fuzz_campaign.GATED]
+    check(sum(f["d2_decodes"] for f in gated) > 0,
+          "D2 decoded no mutated payload under the gate")
+    check(sum(f["walk_launches"] for f in gated) > 0 or not on_card,
+          "walk_kernel never launched under the gate")
+    blobs = sum(f["trials"] for f in fuzz["families"].values())
+    print(f"  (a) fuzz_campaign {' '.join(argv[1:5])}: {blobs} mutated "
+          f"streams over {len(fuzz['families'])} families, 0 findings, every "
+          f"outcome on {dev.type} equal to the CPU's (raised, or equal "
+          f"pixels); D2 decoded "
+          + ", ".join(f"{label} {f['d2_decodes']} (walk launches "
+                      f"{f['walk_launches']})"
+                      for label, f in fuzz["families"].items()
+                      if "walk_launches" in f)
+          + f"; {time.perf_counter() - t0:.1f} s")
+
+    runs = {}
+    for name, device, gates in (("card", dev.type, ""),
+                                ("card, gated", dev.type, "k2,k3,d1,d2"),
+                                ("cpu", "cpu", "")):
+        t0 = time.perf_counter()
+        rc, text = _quiet(roundtrip_campaign.main, [
+            f"--device={device}", f"--seed={sz['rt_seed0']}",
+            f"--trials={sz['rt_trials']}", f"--gates={gates}",
+            f"--out={out}"])
+        runs[name] = s = _last_json(text, "campaign done: ")
+        check(rc == 0 and s["findings"] == 0,
+              f"round trip ({name}): {s['findings']} finding(s):\n{text}")
+        print(f"  (b) roundtrip_campaign --device={device} seeds "
+              f"{sz['rt_seed0'] + 1}..{sz['rt_seed0'] + sz['rt_trials']} "
+              f"gates {gates or 'none'}: {sum(s['trials'].values())} trials, "
+              f"{sum(s['rejects'].values())} rejects, 0 findings, launches "
+              f"{s['launches']}, {time.perf_counter() - t0:.1f} s")
+    if on_card:
+        check(runs["card"]["launches"]["K1"] > 0, "K1 never launched in the "
+              "round trips")
+        for name in ("K1", "K2", "K3", "D1", "D2"):
+            check(runs["card, gated"]["launches"][name] > 0,
+                  f"{name} never launched in the gated round trips")
+    cpu = runs["cpu"]
+    for name in ("card", "card, gated"):
+        for spec in roundtrip_campaign.SPECS:
+            check(runs[name]["streams_sha256"][spec]
+                  == cpu["streams_sha256"][spec],
+                  f"round trip ({name}): {spec}'s streams differ from the "
+                  "CPU's")
+            # under K3 the batch is held against K3's plain route in-run
+            if not (name == "card, gated" and spec == "hilbert(rle(3))"):
+                check(runs[name]["batch_sha256"][spec]
+                      == cpu["batch_sha256"][spec],
+                      f"round trip ({name}): {spec}'s batch streams differ "
+                      "from the CPU's")
+    print(f"  (b) the {len(roundtrip_campaign.SPECS)} specs' streams on "
+          f"{dev.type}, gated and not, hash as the CPU's (sha256 per spec; "
+          "under k3 hilbert(rle(3))'s batch lanes equal K3's plain route "
+          "lane by lane)")
+
+    rc, text = _quiet(profile_clusterc.main, [
+        f"--device={dev.type}", f"--lanes={len(paths)}", "--chunks=1",
+        "--k=32"] + paths)
+    check(rc == 0, f"profile_clusterc failed:\n{text}")
+    print(f"  (c) profile_clusterc over {len(paths)} images (phase 4's), k = "
+          "32, stages in host seconds after a synchronize:")
+    _reprint(text)
+    clusterc = _last_json(text)
+    rc, text = _quiet(kmeans_phase_probe.main, [f"--device={dev.type}"]
+                      + paths)
+    check(rc == 0, f"kmeans_phase_probe failed:\n{text}")
+    print("  (c) kmeans_phase_probe over the same images (phases in host "
+          "seconds, loop windows on the device's clock):")
+    _reprint(text)
+    phases = _last_json(text)
+    launches = {n: c.launches for n, c in counters.items()}
+    print("  launches over phase 8: "
+          + ", ".join(f"{n} {v}" for n, v in launches.items()))
+    if on_card:
+        for name in ("K1", "K2", "K3", "D1", "D2"):
+            check(launches[name] > 0, f"{name} never launched in phase 8")
+    return {"launches": launches, "fuzz_blobs": blobs,
+            "roundtrip_trials": sz["rt_trials"],
+            "profile_clusterc": clusterc["groups"],
+            "kmeans_phases": {
+                spec: [{k: c[k] for k in ("lanes", "seconds", "iterations",
+                                          "windows")} for c in calls]
+                for spec, calls in phases["specs"].items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -2206,11 +2359,13 @@ def main() -> int:
         took("phase 4")
         phase_card_vs_cpu(imgs, runs, dev, sz["crop"])
         took("phase 5")
-    multi = phase_multi_device(imgs, runs, dev, card, sz)
-    took("phase 6")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_exp_") as tmp:
-        exp = phase_experiment(dev, card, sz, tmp)
-    took("phase 7")
+        multi = phase_multi_device(imgs, runs, dev, card, sz)
+        took("phase 6")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_exp_") as tmp7:
+            exp = phase_experiment(dev, card, sz, tmp7)
+        took("phase 7")
+        camp = phase_campaigns(paths, dev, card, sz, tmp)
+        took("phase 8")
 
     if dev.type == "cuda":
         print(run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2320,6 +2475,11 @@ def main() -> int:
     kernels[-1]["routes_ms"] = huf["routes ms"]
     kernels[-1].update(huf["D2 passes"])
     kernels[-1]["root_table_launches"] = launches["D2 root table"]
+    for row in kernels:
+        row["launches_phase_8"] = camp["launches"][row["id"]]
+    kernels[0]["phase_8"] = {k: camp[k] for k in (
+        "fuzz_blobs", "roundtrip_trials", "profile_clusterc",
+        "kmeans_phases")}
     print(json.dumps({"kernels": kernels}))
     if dev.type == "cuda":
         kind, count, platform = (torch.cuda.get_device_name(0),

@@ -38,7 +38,8 @@ returns None, so that the caller uses the host decoder, in exactly JAX's
 cases: a payload under CHUNK_BYTES or at or over _MAX_PAYLOAD_BYTES, a root
 that is a leaf, no symbols, a pass-1 lane not frozen after _STEPS steps, a
 true entry offset >= E before the last chunk, or fewer symbols in the
-payload than asked for. ``declines`` counts those returns.
+payload than asked for. ``declines`` counts those returns, ``decodes`` the
+payloads it decoded.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ TABLE_BITS = 14
 _MAX_TABLE_NODES = 1 << 26
 
 declines = 0
+decodes = 0
 
 
 def _check(payload, lr2, starts, ends, total_bits, out_start, n_symbols):
@@ -321,6 +323,13 @@ def _decline():
     return None
 
 
+def _decoded(ids):
+    global decodes
+    with _count_lock:
+        decodes += 1
+    return ids
+
+
 def chunk_bounds(n_bytes: int):
     """Each chunk's first and end bit, int32 [C], for a payload of n_bytes:
     built in int64 and clamped to the payload's bits before the cast, as
@@ -397,4 +406,4 @@ def decode_payload_device(payload, left, right, symbol, n_symbols: int,
     _, _, _, ids = walk(pay, lr2, chunk + offs, chunk_ends, total_bits,
                         out_start=out_start, n_symbols=int(n_symbols),
                         table=table)
-    return ids.cpu().numpy()
+    return _decoded(ids.cpu().numpy())

@@ -8,6 +8,8 @@ steal candidates, and the point-sharded k-means on a world of one rank
 under NCCL. The bench's two k-means cells at full size against their pins.
 The sweep's device queue (cluster-colors(16..256), voronoi(64..2048)) over
 `mid_0000` against the committed `output_midtex` rows.
+D2 on mutated Huffman streams (the fuzz campaign's blobs) against its
+plain version.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -22,6 +24,7 @@ import torch
 
 from cniic_tpu_torch import huffman, native
 from cniic_tpu_torch.codecs import from_spec
+from cniic_tpu_torch.experiments import fuzz_campaign
 from cniic_tpu_torch.ops import approx_rle as trle
 from cniic_tpu_torch.ops import bitpack, hufdec
 from cniic_tpu_torch.ops import kmeans as tkm
@@ -908,6 +911,29 @@ def test_gated_huffman_codecs_match_cpu(cuda, monkeypatch, gate):
             if on_card.is_lossless:
                 np.testing.assert_array_equal(dec, im)
         assert counter.launches > before, spec
+
+
+@pytest.mark.parametrize("spec", fuzz_campaign.GATED)
+def test_d2_kernel_on_mutated_streams_matches_plain_version(cuda, monkeypatch,
+                                                            spec):
+    """The mutated blobs of tests/test_torch_fuzz_decode.py's D2-gate case
+    (and more of them) through `walk_kernel`: every outcome equals the
+    plain version's on the CPU (raised, or equal pixels), and D2 launched
+    and decoded."""
+    on_card = from_spec(spec, device="cuda")
+    on_cpu = from_spec(spec, device="cpu")
+    blobs = fuzz_campaign.mutated_blobs(on_cpu, 2024, 64,
+                                        fuzz_campaign.GATED_SHAPES)
+    monkeypatch.setenv(fuzz_campaign.GATE, "1")
+    launches, decodes = hufdec.walk.launches, hufdec.decodes
+    for i, blob in enumerate(blobs):
+        got, img = fuzz_campaign.outcome(on_card, blob)
+        want, ref = fuzz_campaign.outcome(on_cpu, blob)
+        assert got == want, f"blob {i}: {got} on the card, {want} on the CPU"
+        if got == "ok":
+            np.testing.assert_array_equal(img, ref, err_msg=f"blob {i}")
+    assert hufdec.walk.launches > launches
+    assert hufdec.decodes > decodes
 
 
 def test_midtex_kmeans_rows_on_the_card(cuda, tmp_path):

@@ -51,6 +51,15 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert {f"cniic_tpu_torch.{m}" for m in (
         "synth_corpus", "sweep", "measure_baseline", "northstar",
         "convergence_study")} <= set(mods)
+    # every script of scripts/experiments/ that imports cniic_tpu has its
+    # module here (kmeans_key_census.py is not ported: ROADMAP.md)
+    assert {m for m in mods if m.startswith("cniic_tpu_torch.experiments.")
+            } == {f"cniic_tpu_torch.experiments.{m}" for m in (
+                "fuzz_campaign", "roundtrip_campaign", "profile_clusterc",
+                "kmeans_phase_probe", "profile_kmeans", "profile_hufenc",
+                "batch_depth_study", "voronoi_probe", "interleave_probe",
+                "probe_cleg_scale", "corpus_variance",
+                "device_hist_rle_probe", "zipback_matchfinder")}
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
