@@ -387,8 +387,10 @@ DECODE_KERNELS = ("D2",)   # the kernels a route's decode launches
 
 
 def counters() -> dict:
-    """The launch counters of the kernels' wrappers (calls that launched)."""
+    """The launch counters of the kernels' wrappers (calls that launched),
+    and the points K1's pruned instance scanned (a device read)."""
     return {"K1": kmeans_kernel.assign_stats.launches,
+            "K1 scanned": kmeans_kernel.scanned_points(),
             "K3": approx_rle.batch_records.launches,
             "K3 kernels": approx_rle.batch_records.kernel_launches,
             "K2": approx_rle.wide_records.launches,
@@ -414,17 +416,19 @@ def encode_kernels(route: Route, codec) -> tuple:
 @contextlib.contextmanager
 def lane_counts():
     """Each k-means loop the engine drives meanwhile, as (the lanes' point
-    counts, the lanes' iteration counts, d, k), tensors read once the loops
-    are done: the engine keeps a lane's count on the device, one added for
-    every launch the lane is active in."""
+    counts, the lanes' iteration counts, d, k, whether K1's pruned instance
+    runs it), tensors read once the loops are done: the engine keeps a
+    lane's count on the device, one added for every launch the lane is
+    active in."""
     loops = []
     step = km.prepare_step
 
     def probe(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved, best,
               stall, it, *rest, **kw):
-        loops.append((n, it, ptsT.shape[1], cents.shape[1]))
-        return step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
-                    best, stall, it, *rest, **kw)
+        fn = step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
+                  best, stall, it, *rest, **kw)
+        loops.append((n, it, ptsT.shape[1], cents.shape[1], fn.pruned))
+        return fn
 
     km.prepare_step = probe
     try:
@@ -459,19 +463,26 @@ def k2_route_split(spent: dict):
          native.approx_rle_encode) = saved
 
 
-def k1_layer(win, launches: int, loops, iters: int) -> dict:
+def k1_layer(win, launches: int, loops, iters: int,
+             scanned: int = 0) -> dict:
     """K1's readings: launches, the loops' iterations, and from a window
     its mean span, its mean bound over the same launches (each bounded on
-    the lanes active in it) and their ratio."""
+    the lanes active in it) and their ratio; over the loops K1's pruned
+    instance ran, the points it scanned over the points of their active
+    lanes (None when it ran none)."""
     bound, by = 0.0, {}
-    for n, it, d, k in loops:
+    for n, it, d, k, _ in loops:
         ms, _, what = roofline.loop_bound_ms(n.tolist(), it.tolist(), d, k)
         bound += ms
         for key, v in what.items():
             by[key] = by.get(key, 0) + v
+    pruned_points = sum(sum(a * b for a, b in zip(n.tolist(), it.tolist()))
+                        for n, it, _, _, pruned in loops if pruned)
     out = {"k1_launches": launches, "kmeans_iters": iters,
            "k1_bound_by": by, "k1_ms": None, "k1_bound_ms": None,
-           "k1_roofline_share": None}
+           "k1_roofline_share": None,
+           "k1_scanned_share": (scanned / pruned_points if pruned_points
+                                else None)}
     if win is not None and launches:
         spans = win["spans"]["assign_stats_kernel"]
         out["k1_ms"] = sum(spans) / len(spans) / 1e3
@@ -567,7 +578,7 @@ def traced_pass(route: Route, codec, imgs, dev) -> tuple:
 
     if "K1" in kinds:
         layer.update(k1_layer(enc_win, launches["K1"], st["loops"],
-                              st["iters"]))
+                              st["iters"], launches["K1 scanned"]))
     for kind in ("K3", "K2", "D1"):
         if kind in kinds:
             name = kind.lower()

@@ -29,8 +29,15 @@ Phases:
    global-statistics branches; then its kernel alone against K1's alone and
    K1 then D3, beside the bound of K1 and D3 together, and what an
    iteration of the loop costs the host and the card with one launch and
-   with two. K2 (its chunk schedule and one walker a stream, records and
-   flags) on the chunks the chunked route cuts from the Hilbert scans: (a)
+   with two. K1's pruned instance (the bound filter in front of its scan,
+   the loop's step for voronoi at k >= 512 on the unpacked path): (h) the
+   2040x1356 image at k = 2048, one lane, every tensor against K1's then
+   D3's plain versions over the loop's first steps with the share of
+   points it scanned, then the whole loop as the engine drives it against
+   the unpruned kernel (iterations, assignment, centroids equal), each
+   kernel's mean time alone over the loop in turns, its launches and the
+   points it scanned over the loop. K2 (its chunk schedule and one walker
+   a stream, records and flags) on the chunks the chunked route cuts from the Hilbert scans: (a)
    a 1024^2 scan, 1024 chunks, allow 4; (b) the same at allow 16; (c) the
    2040x1356 scan, 1024 chunks of 2702, allow 4; (d) crafted boundary ties
    at allow 2 (flags set); (e) allow 64; (f) 1024 flat streams, whose
@@ -112,9 +119,10 @@ Phases:
    (c) columns 2-4 of every row of the 22 CSVs (264) must equal
    `output_midtex/<name>.csv`'s, matched by image basename, and each
    difference is printed; (d) K1 must have launched in every k-means
-   config of the device queue and D3 never alone: each config's
-   iterations, K1 launches, K1 branch (packed or unpacked; shared-memory
-   or global statistics) and seconds are printed; (e) the two queues'
+   config of the device queue, its pruned instance in the sweep, and D3
+   never alone: each config's iterations, K1 launches (of them pruned), K1
+   branch (packed or unpacked; shared-memory or global statistics) and
+   seconds are printed; (e) the two queues'
    wall times, the total and the configs' serial sum; (f) `northstar.main`
    over 16 --ns images of 1024^2 at --chunk=8 must verify every round trip,
    and prints each codec's encode and decode MP/s. In a rehearsal: 2 plain
@@ -138,7 +146,8 @@ Phases:
    a family, one round-trip seed.
 
 It ends with a line holding the card's name and power limit, a JSON line
-describing each kernel of the paths (K1's and D3's with their launches on
+describing each kernel of the paths (K1's pruned instance a row of its own,
+its launches phase 7's, its times (h)'s; K1's and D3's with their launches on
 phase 6's sharded paths, `launches_sharded`, in each of its runs,
 `launches_phase_6`, and over phase 7's sweep, `launches_phase_7`; every
 kernel's launches over phase 8, `launches_phase_8`, and K1's row the
@@ -208,9 +217,11 @@ F32_OPS_PER_S = 67e12     # float32 outside the tensor cores
 # (real, rehearsal) sizes
 SIZES = {
     False: dict(side=1024, div2k=(1356, 2040), crop=256, tie_n=70000,
-                frozen_n=200000, bigk_side=256, iters=20, k3_len=16384),
+                frozen_n=200000, bigk_side=256, iters=20, k3_len=16384,
+                pruned_steps=30),
     True: dict(side=64, div2k=(68, 102), crop=32, tie_n=3000,
-               frozen_n=2000, bigk_side=64, iters=2, k3_len=1024),
+               frozen_n=2000, bigk_side=64, iters=2, k3_len=1024,
+               pruned_steps=2),
 }
 # phase 6: the image whose voronoi points the point-sharded k-means takes
 # (the golden 4K image), and its k
@@ -381,19 +392,26 @@ def phase_build(rehearse: bool) -> None:
         k1 = _ptxas_entries(fh.read())
     steps = [v for name, v in k1.items() if "step_update_kernel" in name]
     k1 = {name: v for name, v in k1.items() if "assign_stats_kernel" in name}
-    # 8 dimensions x statistics branch x packed x with or without the update
-    check(len(k1) == 64, f"ptxas reported {len(k1)} of 64 K1 kernels")
+    # 8 dimensions x statistics branch x packed x with or without the
+    # update, and the pruned instance (d = 5, unpacked, with the update) on
+    # both statistics branches
+    check(len(k1) == 66, f"ptxas reported {len(k1)} of 66 K1 kernels")
     # D3 alone gathering the steal's points, and given them
     check(len(steps) == 2, f"ptxas reported {len(steps)} D3 kernels")
     for name, (regs, st, ld, smem) in sorted(k1.items()):
-        m = re.search(r"ILi(\d)ELb([01])ELb([01])ELb([01])E", name)
+        m = re.search(r"ILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E", name)
         check(m is not None, f"unexpected K1 instance {name}")
+        if m.group(5) == "1":
+            print(f"  ptxas K1 pruned, d={m.group(1)}, "
+                  f"{'shared-memory' if m.group(2) == '1' else 'global'} "
+                  f"stats: {regs} registers, {smem} B static smem, {st} B "
+                  "spills")
         # the main path's: shared-memory statistics, packed, d of the codecs
-        if m.group(1) in ("3", "5") and m.group(2) == m.group(3) == "1":
+        elif m.group(1) in ("3", "5") and m.group(2) == m.group(3) == "1":
             print(f"  ptxas K1 d={m.group(1)} shared-memory stats, packed, "
                   f"{'with' if m.group(4) == '1' else 'without'} the update: "
                   f"{regs} registers, {smem} B static smem, {st} B spills")
-    print(f"  K1, all 64 instances: max {max(v[0] for v in k1.values())} "
+    print(f"  K1, all 66 instances: max {max(v[0] for v in k1.values())} "
           f"registers, max {max(v[1] for v in k1.values())} B spills; D3 "
           f"alone (both modes) {max(v[0] for v in steps)} registers, "
           f"{max(v[1] for v in steps)} B spills")
@@ -549,13 +567,17 @@ def _d3_state(k1_ops, k1_out, max_iters: int):
             torch.zeros(B, **i64), 64, max_iters]
 
 
-def _fused_case(name, k1_ops, pmax, steps, dev, d3_cases=False):
+def _fused_case(name, k1_ops, pmax, steps, dev, d3_cases=False,
+                pruned=False):
     """`steps` whole iterations (K1 with D3 in each lane's last block, one
     launch) against K1's then D3's plain versions on the same device, every
     tensor compared after every step. d3_cases: clusters of lane 0 that no
     point can reach (the steal, at a large iteration), lane 1 frozen, lane 2
     one stall short of the plateau limit, and max_iters binding at the
-    second step. Returns the max |err|."""
+    second step. pruned: K1's pruned instance, with the bound filter's
+    state for the loop (on the card; the plain versions in a rehearsal).
+    Returns the max |err| (and, pruned, the plain versions' ms a step and
+    the share of points scanned in each step)."""
     ptsT, w, cur, cents, n, act = [t.clone() for t in k1_ops]
     B, d, _ = ptsT.shape
     k = cents.shape[1]
@@ -579,13 +601,27 @@ def _fused_case(name, k1_ops, pmax, steps, dev, d3_cases=False):
              torch.zeros(B, dtype=torch.int32, device=dev), moved, best, stall,
              it, thresh]
     want = [t.clone() for t in (cur, cents, act, *state)]
+    bounds = (kmeans_kernel.prune_state(cents, ptsT.shape[2])
+              if pruned and dev.type == "cuda" else None)
     step = kmeans_kernel.prepare_step(ptsT, w, cur, cents, n, act, pmax,
-                                      *state, stall_lim, max_iters)
+                                      *state, stall_lim, max_iters,
+                                      bounds=bounds)
+    check(step.pruned == (bounds is not None), f"{name}: the wrong instance")
     err = 0
     stolen = 0
+    shares, plain_s = [], 0.0
     for _ in range(steps):
-        step()
+        if bounds is None:
+            step()
+        else:
+            live = int(torch.where(act != 0, n, 0).sum())
+            scanned = kmeans_kernel.scanned_points()
+            step()
+            shares.append((kmeans_kernel.scanned_points() - scanned)
+                          / max(live, 1))
         w_cur, w_cents, w_act, w_sums, w_mk, *w_rest = want
+        _sync(dev)
+        t0 = time.perf_counter()
         new, sums, mk = kmeans_kernel.assign_stats_ref(ptsT, w, w_cur, w_cents,
                                                        n, w_act)
         keep = (w_act != 0)[:, None] & (torch.arange(
@@ -594,6 +630,8 @@ def _fused_case(name, k1_ops, pmax, steps, dev, d3_cases=False):
         stolen += int(((sums[:, :, d] == 0) & (w_act != 0)[:, None]).sum())
         kmeans_kernel.step_update_ref(sums, mk, ptsT, n, w_cents, *w_rest[:3],
                                       w_act, *w_rest[3:], stall_lim, max_iters)
+        _sync(dev)
+        plain_s += time.perf_counter() - t0
         err = max(err, _max_err([cur, cents, act, *state[2:6]],
                                 [w_cur, w_cents, w_act, *w_rest[:4]]),
                   int(state[0].abs().max()), int(state[1].abs().max()))
@@ -601,6 +639,11 @@ def _fused_case(name, k1_ops, pmax, steps, dev, d3_cases=False):
           f"steps: max |err| of cur, cents, act, moved, best, stall, it "
           f"(statistics left zero) = {err}; it {it.tolist()}, act "
           f"{act.tolist()}, {stolen} steals")
+    if bounds is not None:
+        print(f"    pruned instance: points scanned a step over the active "
+              f"lanes' points, steps 1-5 "
+              f"{', '.join(f'{x:.4f}' for x in shares[:5])}, the last five "
+              f"{', '.join(f'{x:.4f}' for x in shares[-5:])}")
     check(err == 0, f"the fused step differs from K1's and D3's plain "
           f"versions in {name}")
     if d3_cases:
@@ -608,6 +651,8 @@ def _fused_case(name, k1_ops, pmax, steps, dev, d3_cases=False):
         check(it.tolist() == [2**31 + 7, 2**31 + 5, 2**31 + 6, 2**31 + 7]
               and not bool(act.any()),
               "the fused step did not stop at a binding max_iters")
+    if pruned:
+        return err, plain_s * 1e3 / steps, shares
     return err
 
 
@@ -701,6 +746,61 @@ def _step_timings(key, k1_ops, pmax, k1_alone_ms, dev, card, sz):
             "loop_wall_us": sum(c[1] for c in one) / 2,
             "loop_host_us_two_launches": sum(c[0] for c in two) / 2,
             "loop_wall_us_two_launches": sum(c[1] for c in two) / 2}
+
+
+@contextlib.contextmanager
+def _unpruned():
+    """While entered, the engine's loops take the unpruned kernel."""
+    real = km.pruned_path
+    km.pruned_path = lambda *args: False
+    try:
+        yield
+    finally:
+        km.pruned_path = real
+
+
+def _pruned_loop(ops, pmax, dev, card):
+    """K1's pruned instance over a whole voronoi(2048) loop as the engine
+    drives it (`_drive`, to its end), against the unpruned kernel over the
+    same loop: equal (iters, cur, cents); the kernel's mean time alone over
+    the loop's launches by the profiler, in turns (pruned, unpruned,
+    unpruned, pruned), its launches and the points it scanned."""
+    ptsT, w, cur0, cents0, n, _ = ops
+    k = cents0.shape[1]
+
+    def drive():
+        return km._drive(ptsT, w, cur0.clone(), cents0.clone(), n.tolist(),
+                         k, pmax, 10_000)
+
+    before = (kmeans_kernel.assign_stats.pruned_launches,
+              kmeans_kernel.scanned_points())
+    got = drive()
+    launches = kmeans_kernel.assign_stats.pruned_launches - before[0]
+    scanned = kmeans_kernel.scanned_points() - before[1]
+    with _unpruned():
+        want = drive()
+    err = max(abs(got[0] - want[0]), _max_err(got[1:], want[1:]))
+    ms = {}
+    for pruned in (True, False, False, True):
+        with contextlib.nullcontext() if pruned else _unpruned():
+            ms.setdefault(pruned, []).append(_kernels_split(
+                drive, ("assign_stats_kernel",), dev, calls=1)
+                ["assign_stats_kernel"])
+    share = scanned / max(1, got[0] * int(n.sum()))
+    print(f"  (h) the loop to its end on {card}: {got[0]} iterations, "
+          f"{launches} pruned launches; max |err| of iters, cur, cents "
+          f"against the unpruned kernel = {err}; points scanned over the "
+          f"loop's points {share:.4f}; kernel alone, mean over the loop's "
+          f"launches: pruned {ms[True][0]:.4f} / {ms[True][1]:.4f} ms, "
+          f"unpruned {ms[False][0]:.4f} / {ms[False][1]:.4f} ms (pruned, "
+          f"unpruned, unpruned, pruned)")
+    check(err == 0, "the pruned loop differs from the unpruned kernel's")
+    check(dev.type != "cuda" or launches == got[0] + (-got[0]) % 8,
+          f"the pruned loop made {launches} pruned launches for {got[0]} "
+          "iterations")
+    return {"iterations": got[0], "launches": launches, "err": err,
+            "scanned_share": share, "ms": sum(ms[True]) / 2,
+            "unpruned_ms": sum(ms[False]) / 2}
 
 
 def phase_kernel(imgs, dev, card, sz):
@@ -806,7 +906,27 @@ def phase_kernel(imgs, dev, card, sz):
                     dev))
     d3_err = max(d3_err, fused_err)
 
-    timings = {}
+    print("phase 3 (cont.): K1's pruned instance (the bound filter in front "
+          "of its scan, with D3 and the snapshots in each lane's last block) "
+          "against K1's then D3's plain versions (exact equality)")
+    h_ops, h_pmax = kmeans_profile.voronoi_operands([imgs[8]], 2048, dev)
+    check(dev.type != "cuda" or kmeans_kernel.pruned_path(5, 2048, h_pmax),
+          "the 2040x1356 image at k = 2048 is not on the pruned path")
+    h_err, h_plain_ms, h_shares = _fused_case(
+        "h pruned, 2040x1356 at k = 2048", h_ops, h_pmax, sz["pruned_steps"],
+        dev, pruned=True)
+    h_loop = _pruned_loop(h_ops, h_pmax, dev, card)
+    h_bound = k1_bound(h_ops, with_update=True)
+    print(f"  time the pruned instance (h) on {card}: {h_loop['ms']:.4f} ms "
+          f"a launch over the loop alone, K1's then D3's plain versions "
+          f"{h_plain_ms:.1f} ms a step; bound of K1 and D3 "
+          f"{h_bound[0] * 1e3:.2f} us ({h_bound[1]}), roofline share "
+          f"{h_bound[0] / h_loop['ms']:.4f} (unpruned "
+          f"{h_bound[0] / h_loop['unpruned_ms']:.4f})")
+    timings = {"pruned": {**h_loop, "err": max(h_err, h_loop["err"]),
+                          "plain_ms": h_plain_ms, "bound_ms": h_bound[0],
+                          "bound_by": h_bound[1],
+                          "first_step_shares": h_shares[:5]}}
     for key, name in (("a", "a voronoi"), ("b", "b cluster-colors")):
         ops, pmax = cases[name]
         B, d, n_max = ops[0].shape
@@ -2103,13 +2223,15 @@ def phase_experiment(dev, card, sz, tmp):
     def traced(codec, paths, **kw):
         if not isinstance(codec, (ClusterColors, VoronoiCluster)):
             return measure_all(codec, paths, **kw)
-        before = (k1.launches, d3.launches, log.iters, log.loops)
+        before = (k1.launches, d3.launches, log.iters, log.loops,
+                  k1.pruned_launches)
         t1 = time.perf_counter()
         res = measure_all(codec, paths, **kw)
         per[codec.name] = {
             "seconds": time.perf_counter() - t1,
             "iterations": log.iters - before[2], "loops": log.loops - before[3],
             "k1": k1.launches - before[0], "d3": d3.launches - before[1],
+            "k1_pruned": k1.pruned_launches - before[4],
             "branch": _k1_branch(codec, shape, dev)}
         return res
 
@@ -2120,6 +2242,7 @@ def phase_experiment(dev, card, sz, tmp):
     results, seconds = {}, {}
     for c in counters.values():
         c.launches = 0
+    k1.pruned_launches = 0
     runner.measure_all = traced
     try:
         with kmeans_profile.IterLog() as log:
@@ -2129,6 +2252,7 @@ def phase_experiment(dev, card, sz, tmp):
     finally:
         runner.measure_all = measure_all
     launches = {n: c.launches for n, c in counters.items()}
+    launches["K1 pruned"] = k1.pruned_launches
     print(f"  (b) sweep.main({' '.join(argv[:3])} ...), overlapped, over "
           f"{len(paths)} images:")
     for line in text.splitlines():
@@ -2151,8 +2275,9 @@ def phase_experiment(dev, card, sz, tmp):
     for name in (n for n in names if n in per):
         r = per[name]
         print(f"  (d) {name}: {r['iterations']} iterations in {r['loops']} "
-              f"loops, K1 launches {r['k1']} ({r['branch']}), D3 launches "
-              f"{r['d3']}, {r['seconds']:.1f} s on {card}")
+              f"loops, K1 launches {r['k1']} ({r['branch']}; pruned "
+              f"{r['k1_pruned']}), D3 launches {r['d3']}, "
+              f"{r['seconds']:.1f} s on {card}")
         if dev.type == "cuda":
             check(r["k1"] > 0, f"{name}: K1 never launched on the device "
                   "queue")
@@ -2160,6 +2285,8 @@ def phase_experiment(dev, card, sz, tmp):
           + ", ".join(f"{n} {v}" for n, v in launches.items()))
     if dev.type == "cuda":
         check(launches["D3"] == 0, "D3 launched alone on the device queue")
+        check(launches["K1 pruned"] > 0, "K1's pruned instance never "
+              "launched on the device queue")
     serial = sum(seconds.values())
     print(f"  (e) on {card}: device queue {results['device']:.1f} s, host "
           f"queue {results['host']:.1f} s, total {wall:.1f} s overlapped; the "
@@ -2477,6 +2604,20 @@ def main() -> int:
     kernels[-1]["root_table_launches"] = launches["D2 root table"]
     for row in kernels:
         row["launches_phase_8"] = camp["launches"][row["id"]]
+    # K1's pruned instance, the same kernel's instance for voronoi at large
+    # k (phase 7's sweep drives it): over phase 3's whole loop at k = 2048,
+    # alone by the profiler, beside the unpruned instance in turns
+    pr = timings["pruned"]
+    kernels.insert(1, {
+        "id": "K1 pruned", "name": "kmeans_pruned_step", "route": "cuda",
+        "source": K1_SOURCE, "replaces": K1_REPLACES,
+        "launches": exp["launches"]["K1 pruned"], "max_abs_err": pr["err"],
+        "ms": pr["ms"], "plain_ms": pr["plain_ms"],
+        "bound_ms": pr["bound_ms"], "bound_by": pr["bound_by"],
+        "library_ms": None, "unpruned_ms": pr["unpruned_ms"],
+        "scanned_share": pr["scanned_share"],
+        "loop_iterations": pr["iterations"], "loop_launches": pr["launches"],
+        "first_step_shares": pr["first_step_shares"]})
     kernels[0]["phase_8"] = {k: camp[k] for k in (
         "fuzz_blobs", "roundtrip_trials", "profile_clusterc",
         "kmeans_phases")}

@@ -47,6 +47,18 @@
 //     shared memory (added to global memory once per block), or, when the
 //     tile and the rows pass 48 KB (k = 2048 at d = 5), straight to global.
 //
+// The pruned instance (voronoi's d = 5 points on the unpacked path at
+// k >= 512, the loop's one launch): at large k the scan is nearly all of the
+// step, ~5 integer multiply-adds a (point, centroid) pair at ~70% of the
+// integer pipe's rate, and in the loop's long tail almost no point changes
+// cluster. An exact bound filter (`pruned_pass`) skips the scan of a point
+// that no other centroid can have come strictly closer to, held to the
+// snapshot of the centroids at its last scan; the points that fail are
+// compacted into shared memory and scanned in full tiles. The statistics
+// still read every point every step, so the step stays above its byte
+// count; the skipped pairs are what it saves. D3 in the lane's last block
+// also keeps the snapshots (`snapshot_update`).
+//
 // Tensor cores, estimated and not used: the exact route is int8 mma/wgmma,
 // and 14-bit coordinates need byte splits of both operands, three
 // accumulators of different scale and a per-(point, centroid) epilogue that
@@ -163,6 +175,36 @@ __device__ __forceinline__ void reduce_warp(u64 (&v)[N]) {
   }
 }
 
+// Adds one point's w*p and w to its cluster's statistics, by the whole
+// warp (every lane calls it, `valid` or not): the lanes that share a cluster
+// are summed first and one of them adds the sums (warp-aggregated atomics).
+template <int D>
+__device__ __forceinline__ void add_point_stats(bool valid, int nw,
+                                                int32_t wi,
+                                                const uint32_t (&p)[D],
+                                                u64* dst_sums) {
+  u64 v[D + 1];
+#pragma unroll
+  for (int d = 0; d < D; ++d) v[d] = (u64)((long long)wi * p[d]);
+  v[D] = (u64)(long long)wi;
+  const int key = valid ? nw : -1;
+  bool lead;
+  if (__all_sync(kFull, key == __shfl_sync(kFull, key, 0))) {
+    // the whole warp shares one cluster (the common case)
+    reduce_warp<D + 1>(v);
+    lead = (threadIdx.x & 31) == 0;
+  } else {
+    const unsigned peers = __match_any_sync(kFull, key);
+    reduce_peers<D + 1>(peers, v);
+    lead = (threadIdx.x & 31) == (unsigned)(__ffs(peers) - 1);
+  }
+  if (valid && lead && v[D] != 0) {
+    u64* dst = dst_sums + (size_t)nw * (D + 1);
+#pragma unroll
+    for (int d = 0; d <= D; ++d) atomicAdd(dst + d, v[d]);
+  }
+}
+
 // D3's operands beside K1's: per-lane int64 state, and the lanes' tickets
 // (uint32 [B], zero before the first fused launch).
 struct Update {
@@ -174,6 +216,23 @@ struct Update {
   unsigned* tickets;        // [B]
   long long stall_lim;
   long long max_iters;
+};
+
+// The bound filter's state (the pruned instance only; see the note on
+// `pruned_pass`): per point a lower bound on its distance to every centroid
+// but its own, float32 rounded down, and the iteration of the centroids it
+// was taken at; per lane the centroids of its last kWindow iterations
+// (iteration s in slot s % kWindow, laid out [B, kWindow, d, k]) and, for
+// each slot, the largest distance a centroid has moved since, rounded up;
+// and the count of points scanned.
+constexpr int kWindow = 16;
+
+struct Prune {
+  float* lb;         // [B, n_max]
+  int32_t* since;    // [B, n_max]
+  int32_t* ring;     // [B, kWindow, d, k]
+  float* mdisp;      // [B, kWindow]
+  u64* scanned;      // [1]
 };
 
 // D3 for lane b, by all threads of one block, after every K1 block of the
@@ -234,7 +293,242 @@ __device__ __forceinline__ void lane_update(
   }
 }
 
-template <int D, bool kSmemStats, bool kPacked, bool kFused>
+// After D3 (the pruned instance): lane b's new centroids, iteration `t1`,
+// go into slot t1 % kWindow of its snapshots, and each slot's largest
+// squared distance to them (an exact integer) sets mdisp, its root rounded
+// up. One thread a centroid; `scratch`: kWindow words of shared memory.
+template <int D>
+__device__ __forceinline__ void snapshot_update(int b, long long t1,
+                                                const int32_t* cents, int k,
+                                                const Prune& pr,
+                                                unsigned* scratch) {
+  if (threadIdx.x < kWindow) scratch[threadIdx.x] = 0;
+  __syncthreads();  // and D3's centroids are visible to the whole block
+  int32_t* ring = pr.ring + (size_t)b * kWindow * D * k;
+  const int slot = (int)((unsigned)t1 % kWindow);
+  unsigned mx[kWindow];
+#pragma unroll
+  for (int q = 0; q < kWindow; ++q) mx[q] = 0;
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    int32_t c[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      c[d] = cents[((size_t)b * k + j) * D + d];
+      ring[((size_t)slot * D + d) * k + j] = c[d];
+    }
+#pragma unroll
+    for (int q = 0; q < kWindow; ++q) {
+      unsigned dd = 0;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int diff = c[d] - ring[((size_t)q * D + d) * k + j];
+        dd += (unsigned)(diff * diff);
+      }
+      mx[q] = max(mx[q], dd);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kWindow; ++q) {
+    const unsigned m = __reduce_max_sync(kFull, mx[q]);
+    if ((threadIdx.x & 31) == 0 && m) atomicMax(scratch + q, m);
+  }
+  __syncthreads();
+  if (threadIdx.x < kWindow)
+    pr.mdisp[(size_t)b * kWindow + threadIdx.x] =
+        __fsqrt_ru(__uint2float_ru(scratch[threadIdx.x]));
+}
+
+// The pruned instance's pass over a lane's points (unpacked keys, fused
+// with D3, one launch an iteration). Each point keeps lb, a lower bound on
+// its distance to every centroid but its own as they were at iteration
+// `since`, its last scan. By the triangle inequality its distance to any
+// other centroid now is at least lb - mdisp[since % kWindow], the largest
+// distance a centroid moved since then (rounded down). Its distance to its
+// own centroid a is computed exactly (the statistics read the point
+// anyway). When that is at most the bound, no other centroid is strictly
+// closer, and K1 moves a point only to a strictly closer one, so the point
+// keeps a with no scan; one kept kWindow / 2 iterations from its snapshot
+// takes the bound as its new lb, at this iteration. Any other point is
+// queued. The scan runs on full tiles of queued points, so a warp never
+// waits on one scanning lane among 31 kept ones, and on one partial tile at
+// the end of the block's range (kTq points a thread, as few as it needs).
+// It also keeps the second least key, from which it sets lb exactly
+// (rounded down). Kept points add their statistics as they are tested,
+// scanned points after their scan: every point of the lane, once. The
+// queue is 2 * kTile ids in shared memory after the rows; count[0] its
+// length, count[1] the points the block queued in all.
+template <int D, int kTq>
+__device__ __forceinline__ void scan_queued(
+    const int* queue, int m, const uint32_t* s_rows,
+    const int32_t* __restrict__ pb, const int32_t* __restrict__ w,
+    const int32_t* cur, int32_t* new_out, size_t lane_row, int n_max, int k,
+    int t, const Prune& pr, u64* dst_sums, int& my_moved) {
+  const uint4* s_vecs = reinterpret_cast<const uint4*>(s_rows);
+  uint32_t p[kTq][D];
+  uint32_t pp[kTq];      // |p|^2
+  int32_t best[kTq];     // least key (d2 - |p|^2) over the centroids
+  int32_t second[kTq];   // least key over all but best_c
+  int best_c[kTq];       // the first centroid with the least key
+  int idx[kTq];
+#pragma unroll
+  for (int t_ = 0; t_ < kTq; ++t_) {
+    const int q = t_ * kThreads + threadIdx.x;
+    idx[t_] = q < m ? queue[q] : -1;
+    uint32_t sq = 0;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      p[t_][d] = idx[t_] >= 0 ? (uint32_t)pb[(size_t)d * n_max + idx[t_]]
+                              : 0u;
+      sq += p[t_][d] * p[t_][d];
+    }
+    pp[t_] = sq;
+    best[t_] = second[t_] = 0x7fffffff;
+    best_c[t_] = 0;
+  }
+#pragma unroll 4
+  for (int c = 0; c < k; ++c) {
+    uint32_t r[Row<D>::kWords];
+#pragma unroll
+    for (int v = 0; v < Row<D>::kVecs; ++v) {
+      const uint4 q = s_vecs[c * Row<D>::kVecs + v];
+      r[4 * v] = q.x;
+      r[4 * v + 1] = q.y;
+      r[4 * v + 2] = q.z;
+      r[4 * v + 3] = q.w;
+    }
+#pragma unroll
+    for (int t_ = 0; t_ < kTq; ++t_) {
+      uint32_t key = r[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) key += p[t_][d] * r[d];
+      second[t_] = min(second[t_], max(best[t_], (int32_t)key));
+      if ((int32_t)key < best[t_]) {  // strict: lowest index wins
+        best[t_] = (int32_t)key;
+        best_c[t_] = c;
+      }
+    }
+  }
+#pragma unroll
+  for (int t_ = 0; t_ < kTq; ++t_) {
+    const bool valid = idx[t_] >= 0;
+    int nw = 0;
+    int32_t wi = 0;
+    if (valid) {
+      const size_t i = lane_row + idx[t_];
+      const int c0 = cur[i];
+      const uint32_t* row = s_rows + (size_t)c0 * Row<D>::kWords;
+      uint32_t key0 = row[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) key0 += p[t_][d] * row[d];
+      const uint32_t cur_d2 = key0 + pp[t_];
+      const uint32_t best_d2 = (uint32_t)best[t_] + pp[t_];
+      // a point moves only to a strictly closer centroid
+      nw = best_d2 < cur_d2 ? best_c[t_] : c0;
+      // lb: the least distance to a centroid other than nw (best's, when
+      // nw is the current centroid tied with a lower index)
+      const int32_t low = nw == best_c[t_] ? second[t_] : best[t_];
+      new_out[i] = nw;
+      pr.lb[i] = low == 0x7fffffff
+                     ? __int_as_float(0x7f800000)  // no other centroid
+                     : __fsqrt_rd(__uint2float_rd((uint32_t)low + pp[t_]));
+      pr.since[i] = t;
+      my_moved += nw != c0;
+      wi = w[i];
+    }
+    add_point_stats<D>(valid, nw, wi, p[t_], dst_sums);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ int pruned_pass(
+    int b, int nb, const int32_t* __restrict__ pb,
+    const int32_t* __restrict__ w, const int32_t* cur, int32_t* new_out,
+    size_t lane_row, int n_max, int k, int t, const uint32_t* s_rows,
+    const float* s_mdisp, int* queue, int* count, u64* dst_sums,
+    const Prune& pr) {
+  float* lb = pr.lb + lane_row;
+  int32_t* since = pr.since + lane_row;
+  const unsigned lane = threadIdx.x & 31;
+  int my_moved = 0;
+  // block-uniform loop over tiles: every warp's lanes at each ballot and
+  // at the statistics' aggregation
+  for (int base = blockIdx.x * kTile; base < nb; base += gridDim.x * kTile) {
+    uint32_t p[kT][D];
+    int a[kT];
+    int32_t wi[kT];
+    bool keep[kT];
+#pragma unroll
+    for (int t_ = 0; t_ < kT; ++t_) {
+      const int i = base + t_ * kThreads + threadIdx.x;
+      a[t_] = 0;
+      wi[t_] = 0;
+      keep[t_] = false;
+#pragma unroll
+      for (int d = 0; d < D; ++d) p[t_][d] = 0;
+      if (i >= nb) continue;
+      a[t_] = cur[lane_row + i];
+      wi[t_] = w[lane_row + i];
+      const uint32_t* row = s_rows + (size_t)a[t_] * Row<D>::kWords;
+      uint32_t key = row[D], sq = 0;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        p[t_][d] = (uint32_t)pb[(size_t)d * n_max + i];
+        key += p[t_][d] * row[d];
+        sq += p[t_][d] * p[t_][d];
+      }
+      const float dist = __fsqrt_ru(__uint2float_ru(key + sq));
+      const int s = since[i];
+      const unsigned age = (unsigned)t - (unsigned)s;
+      if (age < kWindow) {
+        const float bound = __fsub_rd(lb[i], s_mdisp[(unsigned)s % kWindow]);
+        keep[t_] = dist <= bound;
+        if (keep[t_] && age >= kWindow / 2) {  // rebased to this iteration
+          lb[i] = bound;
+          since[i] = t;
+        }
+      }
+    }
+#pragma unroll
+    for (int t_ = 0; t_ < kT; ++t_) {
+      const int i = base + t_ * kThreads + threadIdx.x;
+      add_point_stats<D>(keep[t_], a[t_], wi[t_], p[t_], dst_sums);
+      const bool fail = i < nb && !keep[t_];
+      const unsigned mask = __ballot_sync(kFull, fail);
+      int at = 0;
+      if (lane == 0 && mask) {
+        at = atomicAdd(count, __popc(mask));
+        atomicAdd(count + 1, __popc(mask));
+      }
+      at = __shfl_sync(kFull, at, 0);
+      if (fail) queue[at + __popc(mask & ((1u << lane) - 1u))] = i;
+    }
+    __syncthreads();
+    const int q = count[0];
+    if (q >= kTile) {
+      scan_queued<D, kT>(queue, kTile, s_rows, pb, w, cur, new_out, lane_row,
+                         n_max, k, t, pr, dst_sums, my_moved);
+      __syncthreads();
+      for (int j = threadIdx.x; j < q - kTile; j += kThreads)
+        queue[j] = queue[kTile + j];
+      if (threadIdx.x == 0) count[0] = q - kTile;
+    }
+    __syncthreads();  // every thread read q before the next pushes
+  }
+  const int q = count[0];
+  if (q > 2 * kThreads) {
+    scan_queued<D, kT>(queue, q, s_rows, pb, w, cur, new_out, lane_row, n_max,
+                       k, t, pr, dst_sums, my_moved);
+  } else if (q > kThreads) {
+    scan_queued<D, 2>(queue, q, s_rows, pb, w, cur, new_out, lane_row, n_max,
+                      k, t, pr, dst_sums, my_moved);
+  } else if (q > 0) {
+    scan_queued<D, 1>(queue, q, s_rows, pb, w, cur, new_out, lane_row, n_max,
+                      k, t, pr, dst_sums, my_moved);
+  }
+  return my_moved;
+}
+
+template <int D, bool kSmemStats, bool kPacked, bool kFused, bool kPruned>
 __global__ void __launch_bounds__(kThreads)
 assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
                     const int32_t* __restrict__ w,      // [B, n_max]
@@ -245,7 +539,9 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
                     int32_t* new_out,                   // [B, n_max], may be cur
                     u64* sums,                          // [B, k, D + 1]
                     int32_t* moved,                     // [B]
-                    int n_max, int k, int shift, Update up) {
+                    int n_max, int k, int shift, Update up, Prune pr) {
+  static_assert(!kPruned || (kFused && !kPacked),
+                "the pruned instance is the fused, unpacked step");
   const int b = blockIdx.y;
   if (act[b] == 0) return;  // uniform over the block and over the lane
 
@@ -255,6 +551,10 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
   uint32_t* s_rows = reinterpret_cast<uint32_t*>(
       smem + (kSmemStats ? round16(sizeof(u64) * k * (D + 1)) : 0));
   const uint4* s_vecs = reinterpret_cast<const uint4*>(s_rows);
+  // the pruned instance's queue, its two counts and the lane's mdisp
+  int* s_queue = reinterpret_cast<int*>(s_rows + (size_t)k * Row<D>::kWords);
+  int* s_count = s_queue + 2 * kTile;
+  float* s_mdisp = reinterpret_cast<float*>(s_count + 4);
 
   const int32_t* cb = cents + (size_t)b * k * D;
   for (int c = threadIdx.x; c < k; c += blockDim.x) {
@@ -273,7 +573,14 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
   if (kSmemStats) {
     for (int i = threadIdx.x; i < k * (D + 1); i += blockDim.x) s_sums[i] = 0;
   }
-  if (threadIdx.x == 0) s_moved = 0;
+  if (threadIdx.x == 0) {
+    s_moved = 0;
+    if (kPruned) s_count[0] = s_count[1] = 0;
+  }
+  if (kPruned && threadIdx.x < kWindow)
+    s_mdisp[threadIdx.x] = pr.mdisp[(size_t)b * kWindow + threadIdx.x];
+  // the lane's iteration (its snapshots' numbering; mod 2^32 throughout)
+  const int t = kPruned ? (int)up.it[b] : 0;
   __syncthreads();
 
   const int nb = n[b];
@@ -283,94 +590,81 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
   u64* dst_sums = kSmemStats ? s_sums : gsum;
   int my_moved = 0;
 
-  // block-uniform loop over tiles: every warp reaches the warp-wide
-  // aggregation below with all its lanes
-  for (int base = blockIdx.x * kTile; base < nb; base += gridDim.x * kTile) {
-    uint32_t p[kT][D];
-    uint32_t pp[kT];      // |p|^2 << shift
-    int32_t best[kT];     // min over c of (d2*pk + c) - |p|^2*pk
-    int best_c[kT];       // unpacked path: the argmin
-#pragma unroll
-    for (int t = 0; t < kT; ++t) {
-      const int i = base + t * kThreads + threadIdx.x;
-      uint32_t sq = 0;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        p[t][d] = i < nb ? (uint32_t)pb[(size_t)d * n_max + i] : 0u;
-        sq += p[t][d] * p[t][d];
-      }
-      pp[t] = sq << shift;
-      best[t] = 0x7fffffff;
-      best_c[t] = 0;
-    }
-
-#pragma unroll 4
-    for (int c = 0; c < k; ++c) {
-      uint32_t r[Row<D>::kWords];
-#pragma unroll
-      for (int v = 0; v < Row<D>::kVecs; ++v) {
-        const uint4 q = s_vecs[c * Row<D>::kVecs + v];
-        r[4 * v] = q.x;
-        r[4 * v + 1] = q.y;
-        r[4 * v + 2] = q.z;
-        r[4 * v + 3] = q.w;
-      }
+  if constexpr (kPruned) {
+    my_moved = pruned_pass<D>(b, nb, pb, w, cur, new_out, lane_row, n_max,
+                              k, t, s_rows, s_mdisp, s_queue, s_count,
+                              dst_sums, pr);
+  } else {
+    // block-uniform loop over tiles: every warp reaches the warp-wide
+    // aggregation below with all its lanes
+    for (int base = blockIdx.x * kTile; base < nb; base += gridDim.x * kTile) {
+      uint32_t p[kT][D];
+      uint32_t pp[kT];      // |p|^2 << shift
+      int32_t best[kT];     // min over c of (d2*pk + c) - |p|^2*pk
+      int best_c[kT];       // unpacked path: the argmin
 #pragma unroll
       for (int t = 0; t < kT; ++t) {
-        uint32_t key = r[D];
+        const int i = base + t * kThreads + threadIdx.x;
+        uint32_t sq = 0;
 #pragma unroll
-        for (int d = 0; d < D; ++d) key += p[t][d] * r[d];
-        if (kPacked) {
-          best[t] = min(best[t], (int32_t)key);
-        } else if ((int32_t)key < best[t]) {  // strict: lowest index wins
-          best[t] = (int32_t)key;
-          best_c[t] = c;
+        for (int d = 0; d < D; ++d) {
+          p[t][d] = i < nb ? (uint32_t)pb[(size_t)d * n_max + i] : 0u;
+          sq += p[t][d] * p[t][d];
+        }
+        pp[t] = sq << shift;
+        best[t] = 0x7fffffff;
+        best_c[t] = 0;
+      }
+
+#pragma unroll 4
+      for (int c = 0; c < k; ++c) {
+        uint32_t r[Row<D>::kWords];
+#pragma unroll
+        for (int v = 0; v < Row<D>::kVecs; ++v) {
+          const uint4 q = s_vecs[c * Row<D>::kVecs + v];
+          r[4 * v] = q.x;
+          r[4 * v + 1] = q.y;
+          r[4 * v + 2] = q.z;
+          r[4 * v + 3] = q.w;
+        }
+#pragma unroll
+        for (int t = 0; t < kT; ++t) {
+          uint32_t key = r[D];
+#pragma unroll
+          for (int d = 0; d < D; ++d) key += p[t][d] * r[d];
+          if (kPacked) {
+            best[t] = min(best[t], (int32_t)key);
+          } else if ((int32_t)key < best[t]) {  // strict: lowest index wins
+            best[t] = (int32_t)key;
+            best_c[t] = c;
+          }
         }
       }
-    }
 
 #pragma unroll
-    for (int t = 0; t < kT; ++t) {
-      const int i = base + t * kThreads + threadIdx.x;
-      const bool valid = i < nb;
-      int nw = 0;
-      int32_t wi = 0;
-      if (valid) {
-        const int c0 = cur[lane_row + i];
-        const uint32_t* row = s_rows + (size_t)c0 * Row<D>::kWords;
-        uint32_t key0 = row[D];
+      for (int t = 0; t < kT; ++t) {
+        const int i = base + t * kThreads + threadIdx.x;
+        const bool valid = i < nb;
+        int nw = 0;
+        int32_t wi = 0;
+        if (valid) {
+          const int c0 = cur[lane_row + i];
+          const uint32_t* row = s_rows + (size_t)c0 * Row<D>::kWords;
+          uint32_t key0 = row[D];
 #pragma unroll
-        for (int d = 0; d < D; ++d) key0 += p[t][d] * row[d];
-        const uint32_t cur_d2 = (key0 + pp[t]) >> shift;
-        const uint32_t best_key = (uint32_t)best[t] + pp[t];
-        const uint32_t best_d2 = best_key >> shift;
-        const int bc = kPacked ? (int)(best_key & ((1u << shift) - 1u))
-                               : best_c[t];
-        // a point moves only to a strictly closer centroid
-        nw = best_d2 < cur_d2 ? bc : c0;
-        new_out[lane_row + i] = nw;
-        my_moved += nw != c0;
-        wi = w[lane_row + i];
-      }
-      u64 v[D + 1];
-#pragma unroll
-      for (int d = 0; d < D; ++d) v[d] = (u64)((long long)wi * p[t][d]);
-      v[D] = (u64)(long long)wi;
-      const int key = valid ? nw : -1;
-      bool lead;
-      if (__all_sync(kFull, key == __shfl_sync(kFull, key, 0))) {
-        // the whole warp shares one cluster (the common case)
-        reduce_warp<D + 1>(v);
-        lead = (threadIdx.x & 31) == 0;
-      } else {
-        const unsigned peers = __match_any_sync(kFull, key);
-        reduce_peers<D + 1>(peers, v);
-        lead = (threadIdx.x & 31) == (unsigned)(__ffs(peers) - 1);
-      }
-      if (valid && lead && v[D] != 0) {
-        u64* dst = dst_sums + (size_t)nw * (D + 1);
-#pragma unroll
-        for (int d = 0; d <= D; ++d) atomicAdd(dst + d, v[d]);
+          for (int d = 0; d < D; ++d) key0 += p[t][d] * row[d];
+          const uint32_t cur_d2 = (key0 + pp[t]) >> shift;
+          const uint32_t best_key = (uint32_t)best[t] + pp[t];
+          const uint32_t best_d2 = best_key >> shift;
+          const int bc = kPacked ? (int)(best_key & ((1u << shift) - 1u))
+                                 : best_c[t];
+          // a point moves only to a strictly closer centroid
+          nw = best_d2 < cur_d2 ? bc : c0;
+          new_out[lane_row + i] = nw;
+          my_moved += nw != c0;
+          wi = w[lane_row + i];
+        }
+        add_point_stats<D>(valid, nw, wi, p[t], dst_sums);
       }
     }
   }
@@ -379,6 +673,8 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
   if ((threadIdx.x & 31) == 0 && my_moved) atomicAdd(&s_moved, my_moved);
   __syncthreads();
   if (threadIdx.x == 0 && s_moved) atomicAdd(moved + b, s_moved);
+  if (kPruned && threadIdx.x == 0 && s_count[1])
+    atomicAdd(pr.scanned, (u64)s_count[1]);
   if (kSmemStats) {
     for (int i = threadIdx.x; i < k * (D + 1); i += blockDim.x) {
       const u64 v = s_sums[i];
@@ -399,13 +695,18 @@ assign_stats_kernel(const int32_t* __restrict__ ptsT,   // [B, D, n_max]
       __threadfence();
       lane_update<false>(b, sums, moved, ptsT, n, nullptr, cents, act, up, D,
                          n_max, k);
+      // (the queue is free by now: the snapshot's scratch)
+      if (kPruned)
+        snapshot_update<D>(b, (long long)t + 1, cents, k, pr,
+                           reinterpret_cast<unsigned*>(s_queue));
     }
   }
 }
 
-size_t smem_bytes(int d, int k, bool smem_stats) {
+size_t smem_bytes(int d, int k, bool smem_stats, bool pruned = false) {
   const size_t rows = (size_t)k * ((d + 1 + 3) / 4 * 4) * sizeof(uint32_t);
-  return rows + (smem_stats ? round16((size_t)k * (d + 1) * sizeof(u64)) : 0);
+  return rows + (smem_stats ? round16((size_t)k * (d + 1) * sizeof(u64)) : 0) +
+         (pruned ? round16((2 * kTile + 4 + kWindow) * sizeof(int)) : 0);
 }
 
 bool stats_in_smem(int d, int k) {
@@ -424,13 +725,14 @@ struct Asked {
   int sms = 0;                  // the device's SM count
 };
 
-template <int D, bool kSmemStats, bool kPacked, bool kFused>
+template <int D, bool kSmemStats, bool kPacked, bool kFused, bool kPruned>
 cudaError_t launch(const int32_t* ptsT, const int32_t* w, const int32_t* cur,
                    int32_t* cents, const int32_t* n, int32_t* act,
                    int32_t* new_out, u64* sums, int32_t* moved, int B,
-                   int n_max, int k, const Update& up, cudaStream_t stream) {
-  auto kernel = assign_stats_kernel<D, kSmemStats, kPacked, kFused>;
-  const size_t smem = smem_bytes(D, k, kSmemStats);
+                   int n_max, int k, const Update& up, const Prune& pr,
+                   cudaStream_t stream) {
+  auto kernel = assign_stats_kernel<D, kSmemStats, kPacked, kFused, kPruned>;
+  const size_t smem = smem_bytes(D, k, kSmemStats, kPruned);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
   // one wave: as many blocks as fit the card at once, shared by the lanes
   // (asked of the runtime once per instance, device and shared-memory size)
@@ -471,35 +773,44 @@ cudaError_t launch(const int32_t* ptsT, const int32_t* w, const int32_t* cur,
   if (bx < 1) bx = 1;
   const int shift = kPacked ? log2_pow2_at_least(k) : 0;
   kernel<<<dim3(bx, B), kThreads, smem, stream>>>(
-      ptsT, w, cur, cents, n, act, new_out, sums, moved, n_max, k, shift, up);
+      ptsT, w, cur, cents, n, act, new_out, sums, moved, n_max, k, shift, up,
+      pr);
   return cudaGetLastError();
 }
 
-template <int D, bool kFused>
+template <int D, bool kFused, bool kPruned>
 cudaError_t launch_d(const int32_t* ptsT, const int32_t* w, const int32_t* cur,
                      int32_t* cents, const int32_t* n, int32_t* act,
                      int32_t* new_out, u64* sums, int32_t* moved, int B,
                      int n_max, int k, bool packed, const Update& up,
-                     cudaStream_t stream) {
+                     const Prune& pr, cudaStream_t stream) {
   const bool in_smem = stats_in_smem(D, k);
-  if (packed && in_smem)
-    return launch<D, true, true, kFused>(ptsT, w, cur, cents, n, act, new_out,
-                                         sums, moved, B, n_max, k, up, stream);
-  if (packed)
-    return launch<D, false, true, kFused>(ptsT, w, cur, cents, n, act, new_out,
-                                          sums, moved, B, n_max, k, up, stream);
-  if (in_smem)
-    return launch<D, true, false, kFused>(ptsT, w, cur, cents, n, act, new_out,
-                                          sums, moved, B, n_max, k, up, stream);
-  return launch<D, false, false, kFused>(ptsT, w, cur, cents, n, act, new_out,
-                                         sums, moved, B, n_max, k, up, stream);
+#define CNIIC_K1_LAUNCH(SMEM, PACKED, PRUNED)                                 \
+  launch<D, SMEM, PACKED, kFused, PRUNED>(ptsT, w, cur, cents, n, act,       \
+                                          new_out, sums, moved, B, n_max, k, \
+                                          up, pr, stream)
+  if constexpr (kPruned) {
+    if (packed) return cudaErrorInvalidValue;
+    return in_smem ? CNIIC_K1_LAUNCH(true, false, true)
+                   : CNIIC_K1_LAUNCH(false, false, true);
+  } else {
+    if (packed && in_smem) return CNIIC_K1_LAUNCH(true, true, false);
+    if (packed) return CNIIC_K1_LAUNCH(false, true, false);
+    if (in_smem) return CNIIC_K1_LAUNCH(true, false, false);
+    return CNIIC_K1_LAUNCH(false, false, false);
+  }
+#undef CNIIC_K1_LAUNCH
 }
 
-template <bool kFused>
+// The pruned instance exists at d = 5 only (voronoi's points).
+constexpr int kPrunedD = 5;
+
+template <bool kFused, bool kPruned = false>
 cudaError_t launch_step(const void* ptsT, const void* w, const void* cur,
                         void* cents, const void* n, void* act, void* new_out,
                         void* sums, void* moved, int B, int d, int n_max, int k,
-                        int packed, const Update& up, void* stream) {
+                        int packed, const Update& up, void* stream,
+                        const Prune& pr = Prune{}) {
   if (B <= 0 || n_max <= 0) return cudaSuccess;
   if (k < 1 || B > 65535) return cudaErrorInvalidValue;
   const int32_t* P = static_cast<const int32_t*>(ptsT);
@@ -513,10 +824,16 @@ cudaError_t launch_step(const void* ptsT, const void* w, const void* cur,
   int32_t* V = static_cast<int32_t*>(moved);
   const bool pk = packed != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (kPruned) {
+    // a point the filter keeps is not written: the new ids go over cur
+    if (d != kPrunedD || O != C) return cudaErrorInvalidValue;
+    return launch_d<kPrunedD, kFused, true>(P, W, C, M, N, A, O, S, V, B,
+                                            n_max, k, pk, up, pr, s);
+  }
 #define CNIIC_K1_CASE(D_)                                                     \
   case D_:                                                                    \
-    return launch_d<D_, kFused>(P, W, C, M, N, A, O, S, V, B, n_max, k, pk,   \
-                                up, s);
+    return launch_d<D_, kFused, false>(P, W, C, M, N, A, O, S, V, B, n_max,   \
+                                       k, pk, up, pr, s);
   switch (d) {
     CNIIC_K1_CASE(1)
     CNIIC_K1_CASE(2)
@@ -581,6 +898,36 @@ int kmeans_fused_step(const void* ptsT, const void* w, const void* cur,
   return launch_step<true>(ptsT, w, cur, cents, n, act, new_out, sums, moved_k,
                            B, d, n_max, k, packed, up, stream);
 }
+
+// Launch one whole iteration of the pruned instance on `stream`: as
+// kmeans_fused_step, d = 5, unpacked keys, `new_out` == `cur`, with the
+// bound filter's state: lb float32 [B, n_max] and since int32 [B, n_max]
+// (zero before the first launch), ring int32 [B, kWindow, d, k] (the first
+// centroids in slot 0) and mdisp float32 [B, kWindow] (zero), and
+// `scanned`, a uint64 the kernel adds the points it scanned to. Returns a
+// cudaError_t.
+int kmeans_pruned_step(const void* ptsT, const void* w, const void* cur,
+                       void* cents, const void* n, void* act, void* new_out,
+                       void* sums, void* moved_k, void* moved, void* best,
+                       void* stall, void* it, const void* thresh,
+                       void* tickets, void* lb, void* since, void* ring,
+                       void* mdisp, void* scanned, int B, int d, int n_max,
+                       int k, int packed, long long stall_lim,
+                       long long max_iters, void* stream) {
+  const Update up{static_cast<long long*>(moved), static_cast<long long*>(best),
+                  static_cast<long long*>(stall), static_cast<long long*>(it),
+                  static_cast<const long long*>(thresh),
+                  static_cast<unsigned*>(tickets), stall_lim, max_iters};
+  const Prune pr{static_cast<float*>(lb), static_cast<int32_t*>(since),
+                 static_cast<int32_t*>(ring), static_cast<float*>(mdisp),
+                 static_cast<u64*>(scanned)};
+  return launch_step<true, true>(ptsT, w, cur, cents, n, act, new_out, sums,
+                                 moved_k, B, d, n_max, k, packed, up, stream,
+                                 pr);
+}
+
+// The pruned instance's window of snapshots (kmeans_pruned_step's ring).
+int kmeans_prune_window() { return kWindow; }
 
 // Launch one D3 update on `stream` after a kmeans_assign_stats (shapes on
 // lane_update; moved, best, stall, it and thresh are int64 [B]). `stolen`

@@ -57,7 +57,7 @@ import torch
 
 from .. import resolve_device
 from ..parallel import mesh
-from .kmeans_kernel import prepare_step
+from .kmeans_kernel import prepare_step, prune_state, pruned_path
 
 log = logging.getLogger(__name__)
 
@@ -147,7 +147,10 @@ def _drive(ptsT, w, cur, cents, ns, k: int, pmax, max_iters: int):
     steal, plateau, freeze and the lane's iteration count, kept on the
     device) in each lane's last block. The operands are checked once, and
     the host reads the counts and the active flags every `_CHECK_EVERY`
-    iterations. `cur` and `cents` are updated in place."""
+    iterations. `cur` and `cents` are updated in place. On the card, a shape
+    that `pruned_path` picks (voronoi's points at k >= 512, unpacked) runs
+    K1's pruned instance with the bound filter's state made here for this
+    loop: the same results, most points' scans skipped."""
     dev = ptsT.device
     B, d, _ = ptsT.shape
     n64 = torch.tensor(ns, dtype=torch.int64, device=dev)
@@ -168,9 +171,11 @@ def _drive(ptsT, w, cur, cents, ns, k: int, pmax, max_iters: int):
     lanes = torch.zeros((2, B), dtype=torch.int64, device=dev)
     sums = torch.zeros((B, k, d + 1), dtype=torch.int64, device=dev)
     mv = torch.zeros(B, dtype=torch.int32, device=dev)
+    bounds = (prune_state(cents, ptsT.shape[2])
+              if dev.type == "cuda" and pruned_path(d, k, pmax) else None)
     step = prepare_step(
         ptsT, w, cur, cents, n32, act, pmax, sums, mv, moved, best, stall,
-        lanes[0], thresh, stall_lim, max_iters)
+        lanes[0], thresh, stall_lim, max_iters, bounds=bounds)
     it = 0
     guard = (torch.cuda.device(dev) if dev.type == "cuda"
              else contextlib.nullcontext())

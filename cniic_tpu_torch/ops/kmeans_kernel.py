@@ -35,6 +35,12 @@ with D3 run by the last block of each lane (``prepare_step``).
   ``fused=False`` or on the CPU, ``assign_stats`` then ``step_update``.
   ``prepare_assign`` and ``prepare_update`` do the same for each alone (the
   point-sharded loop runs its all-reduce between them).
+* Given the bound filter's state (``prune_state``) at a shape
+  ``pruned_path`` picks (voronoi's points at k >= 512, unpacked), the
+  one launch of ``prepare_step`` is K1's pruned instance: the same outputs,
+  the scans of points no other centroid can have come closer to skipped
+  (``pruned_assign_ref`` is the filter's plain model; ``scanned_points``
+  counts what it scanned).
 
 K1's operands (B lanes, n_max points per lane, d dimensions, k centroids):
 ptsT int32[B, d, n_max] (nonnegative), w int32[B, n_max], cur int32[B, n_max]
@@ -91,6 +97,10 @@ def load_library() -> ctypes.CDLL:
     lib.kmeans_step_update.restype = ci
     lib.kmeans_fused_step.argtypes = [vp] * 15 + [ci] * 5 + [cl, cl, vp]
     lib.kmeans_fused_step.restype = ci
+    lib.kmeans_pruned_step.argtypes = [vp] * 20 + [ci] * 5 + [cl, cl, vp]
+    lib.kmeans_pruned_step.restype = ci
+    lib.kmeans_prune_window.argtypes = []
+    lib.kmeans_prune_window.restype = ci
     lib.kmeans_stats_in_smem.argtypes = [ci, ci]
     lib.kmeans_stats_in_smem.restype = ci
     lib.kmeans_error_string.argtypes = [ci]
@@ -417,9 +427,59 @@ def step_update_ref(sums, moved_k, ptsT, n, cents, moved, best, stall, act,
 # the loop's iteration: K1 with D3 in each lane's last block
 # ---------------------------------------------------------------------------
 
+# K1's pruned instance (the bound filter in front of the scan, see the
+# kernel's note) runs voronoi's points (d = 5) on the unpacked path from this
+# k up, where the scan over k centroids is nearly all of the step
+PRUNE_D = 5
+PRUNE_MIN_K = 512
+
+
+def pruned_path(d: int, k: int, pmax) -> bool:
+    """Whether the loop's iteration on the card takes K1's pruned instance:
+    chosen by the shape, d = 5 and k >= 512 on the unpacked path."""
+    return d == PRUNE_D and k >= PRUNE_MIN_K and not packed_path(pmax, k)
+
+
+# the snapshots a lane keeps of its last centroid sets (see the model below)
+PRUNE_WINDOW = 16
+
+
+def prune_state(cents, n_max: int):
+    """The bound filter's state for one loop over the centroids `cents`
+    (int32[B, k, d], iteration 0), as the first launch needs it: lb
+    float32[B, n_max] = 0 and since int32[B, n_max] = 0 (every point is
+    held to its exact distance), the snapshots int32[B, PRUNE_WINDOW, d, k]
+    (iteration 0's in slot 0) and mdisp float32[B, PRUNE_WINDOW] = 0."""
+    B, k, d = cents.shape
+    dev = cents.device
+    ring = torch.zeros((B, PRUNE_WINDOW, d, k), dtype=torch.int32, device=dev)
+    ring[:, 0] = cents.transpose(1, 2)
+    return (torch.zeros((B, n_max), dtype=torch.float32, device=dev),
+            torch.zeros((B, n_max), dtype=torch.int32, device=dev), ring,
+            torch.zeros((B, PRUNE_WINDOW), dtype=torch.float32, device=dev))
+
+
+_scan_counts = {}   # device -> uint64[1] the pruned instance adds to
+
+
+def _scan_count(dev) -> torch.Tensor:
+    with _count_lock:
+        if dev not in _scan_counts:
+            _scan_counts[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+        return _scan_counts[dev]
+
+
+def scanned_points() -> int:
+    """Points the pruned instance scanned, over every launch so far (a
+    device read: it waits for the launches)."""
+    with _count_lock:
+        counts = list(_scan_counts.values())
+    return sum(int(c.item()) for c in counts)
+
+
 def prepare_step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
                  best, stall, it, thresh, stall_lim: int, max_iters: int,
-                 fused: bool = True):
+                 fused: bool = True, bounds=None):
     """Check the operands of a whole iteration once and return a callable
     that runs it in place, any number of times: K1 (`assign_stats` over the
     lanes `act` names, the new ids written over `cur`) then D3
@@ -430,7 +490,14 @@ def prepare_step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
     (the caller keeps the tensors' device current while it calls); it adds
     one to `assign_stats.launches`. `fused=False` keeps the two launches,
     `assign_stats` then `step_update` (`prepare_assign`, `prepare_update`).
-    CPU tensors take the two plain versions either way."""
+    CPU tensors take the two plain versions either way.
+
+    bounds: on the card, the bound filter's state (`prune_state` of the
+    loop's first centroids), made for this loop and changed by nothing else,
+    for a shape `pruned_path` picks: the one launch is then K1's pruned
+    instance (every output the same), which adds to
+    `assign_stats.pruned_launches` too and to `scanned_points`. The
+    callable's `pruned` says which instance it runs."""
     k1 = prepare_assign(ptsT, w, cur, cents, n, act, pmax,
                         out=(cur, sums, moved_k))
     d3 = prepare_update(sums, moved_k, ptsT, n, cents, moved, best, stall,
@@ -441,7 +508,10 @@ def prepare_step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
         k1()
         d3()
 
+    two_launches.pruned = False
     if dev.type == "cpu" or not fused:
+        if bounds is not None and dev.type != "cpu":
+            raise ValueError("the pruned instance is the one-launch iteration")
         return two_launches
     B, d, n_max = ptsT.shape
     k = cents.shape[1]
@@ -451,10 +521,27 @@ def prepare_step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
     # the tensors stay alive in this tuple for as long as the callable does
     held = (ptsT, w, cur, cents, n, act, cur, sums, moved_k, moved, best,
             stall, it, thresh, tickets)
+    launch = lib.kmeans_fused_step
+    pruned = bounds is not None
+    if pruned:
+        if not pruned_path(d, k, pmax):
+            keys = "packed" if packed_path(pmax, k) else "unpacked"
+            raise ValueError(f"K1 has no pruned instance at d={d}, k={k}, "
+                             f"{keys}")
+        f32, i32, W = torch.float32, torch.int32, PRUNE_WINDOW
+        _check_tensors({"lb": (bounds[0], f32, (B, n_max)),
+                        "since": (bounds[1], i32, (B, n_max)),
+                        "ring": (bounds[2], i32, (B, W, d, k)),
+                        "mdisp": (bounds[3], f32, (B, W))}, dev)
+        if lib.kmeans_prune_window() != W:
+            raise RuntimeError(f"{SOURCE} keeps {lib.kmeans_prune_window()} "
+                               f"snapshots, the wrapper {W}")
+        held += (*bounds, _scan_count(dev))
+        launch = lib.kmeans_pruned_step
+        what = "kmeans_pruned_step" + what[len("kmeans_fused_step"):]
     args = ([t.data_ptr() for t in held]
             + [B, d, n_max, k, int(packed_path(pmax, k)), stall_lim,
                max_iters, torch.cuda.current_stream(dev).cuda_stream])
-    launch = lib.kmeans_fused_step
 
     def one_launch() -> None:
         rc = launch(*args)
@@ -462,6 +549,193 @@ def prepare_step(ptsT, w, cur, cents, n, act, pmax, sums, moved_k, moved,
             _raise_launch(lib, rc, what)
         with _count_lock:
             assign_stats.launches += 1
+            if pruned:
+                assign_stats.pruned_launches += 1
 
     one_launch.held = held
+    one_launch.pruned = pruned
     return one_launch
+
+
+assign_stats.pruned_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the bound filter in front of K1's scan: a plain model
+# ---------------------------------------------------------------------------
+#
+# Exact pruning of the centroid scan. Each point keeps a lower bound `lb`
+# on its distance to every centroid but its own, as they were at iteration
+# `since` (its last scan), one a group of `groups` contiguous ranges of
+# centroid ids (Yinyang's grouped bounds; one group is Hamerly's bound).
+# The lane keeps the centroids of its last `window` iterations, and after
+# each update the largest distance any centroid of a group has moved from
+# each of them (`mdisp`). At iteration t a point's distance to another
+# centroid is at least lb - mdisp[since] (the triangle inequality), and its
+# distance to its own centroid is computed exactly. When that distance is
+# at most every group's bound, no other centroid can be strictly closer,
+# and K1 moves a point only to a strictly closer one: the point keeps its
+# centroid with no scan. A point kept at window // 2 iterations from its
+# snapshot takes the bound as its new one (it is rebased to t); any other
+# point is scanned, and its bounds are set from the scan. A window of 2
+# rebases every kept point every step: Hamerly's rule, lb shrinking by the
+# largest drift each step. Every result equals the unpruned step's. The
+# kernel keeps the bounds in float32 with directed rounding; this model in
+# float64, rounded outward the same way. Tests and
+# `prune_probe.py` use it, the main path does not.
+
+_INF = float("inf")
+
+
+def _sqrt_out(d2, up: bool):
+    """sqrt of exact integer squares (int64), rounded up or down: exact for
+    a perfect square, else one float64 step outward."""
+    s = torch.sqrt(d2.to(torch.float64))
+    exact = (s == torch.floor(s)) & (s * s == d2.to(torch.float64))
+    away = torch.nextafter(s, torch.full_like(s, _INF if up else -_INF))
+    return torch.where(exact, s, away).clamp(min=0.0)
+
+
+def _sub_down(a, b):
+    """a - b rounded down: the rounding error of the float64 difference,
+    by Knuth's two-sum, says whether the nearest one fell above."""
+    r = a - b
+    bb = r - a
+    err = (a - (r - bb)) - (b + bb)
+    low = torch.where(err < 0, torch.nextafter(r, torch.full_like(r, -_INF)),
+                      r)
+    return torch.where(torch.isfinite(r), low, r)
+
+
+def group_of(k: int, groups: int, device="cpu"):
+    """Each centroid id's group: `groups` contiguous ranges of ids."""
+    return torch.arange(k, dtype=torch.int64, device=device) * groups // k
+
+
+def prune_bounds_ref(cents, n_max: int, window: int, groups: int = 1):
+    """The model's state at the start of a loop over centroids `cents`
+    (int32[B, k, d], iteration 0): lb float64[B, groups, n_max] = 0 and
+    since int64[B, n_max] = 0 (every point is held to its exact distance,
+    so only a point on its centroid is kept), the snapshots int64[B,
+    window, k, d] (iteration 0's in slot 0) and mdisp float64[B, window,
+    groups] = 0."""
+    B, k, d = cents.shape
+    dev = cents.device
+    ring = torch.zeros((B, window, k, d), dtype=torch.int64, device=dev)
+    ring[:, 0] = cents
+    return {"lb": torch.zeros((B, groups, n_max), dtype=torch.float64,
+                              device=dev),
+            "since": torch.zeros((B, n_max), dtype=torch.int64, device=dev),
+            "ring": ring,
+            "mdisp": torch.zeros((B, window, groups), dtype=torch.float64,
+                                 device=dev)}
+
+
+def snapshot_ref(state, cents, it, ran) -> None:
+    """After D3: each lane that ran (bool[B]) keeps its new centroids as
+    iteration it[b]'s snapshot and sets mdisp[b, slot, g], the largest
+    distance a centroid of group g moved from each snapshot, rounded up."""
+    ring, mdisp = state["ring"], state["mdisp"]
+    B, W, k, _ = ring.shape
+    G = mdisp.shape[2]
+    grp = group_of(k, G, cents.device)
+    for b in torch.nonzero(ran)[:, 0].tolist():
+        ring[b, int(it[b]) % W] = cents[b]
+        diff = cents[b].to(torch.int64)[None] - ring[b]          # (W, k, d)
+        disp = _sqrt_out((diff * diff).sum(2), up=True)          # (W, k)
+        m = torch.zeros((W, G), dtype=torch.float64, device=cents.device)
+        mdisp[b] = m.scatter_reduce(1, grp[None].expand(W, -1), disp, "amax")
+
+
+def _d2(ptsT, cents, b, idx, c):
+    """Exact squared distances int64 of lane b's points `idx` to its
+    centroids `c` (one a point)."""
+    p = ptsT[b][:, idx].to(torch.int64)                      # (d, m)
+    q = cents[b][c].to(torch.int64).T                        # (d, m)
+    return ((p - q) ** 2).sum(0)
+
+
+def filter_ref(ptsT, cur, cents, n, act, it, state):
+    """The filter's decisions for one step at each lane's iteration it[b]:
+    which points must be scanned, bool[B, n_max] (active lanes' valid
+    points that fail). Rebases the points it keeps at window // 2
+    iterations or more from their snapshot, in place."""
+    B, d, n_max = ptsT.shape
+    lb, since, mdisp = state["lb"], state["since"], state["mdisp"]
+    W = mdisp.shape[1]
+    dev = ptsT.device
+    scan = torch.zeros((B, n_max), dtype=torch.bool, device=dev)
+    for b in range(B):
+        nb, t = int(n[b]), int(it[b])
+        if int(act[b]) == 0 or nb == 0:
+            continue
+        a = cur[b, :nb].to(torch.int64)
+        ub = _sqrt_out(_d2(ptsT, cents, b, torch.arange(nb, device=dev), a),
+                       up=True)
+        s = since[b, :nb]
+        low = _sub_down(lb[b, :, :nb], mdisp[b, s % W].T)            # (G, nb)
+        low = torch.where((t - s < W)[None], low, -_INF)
+        keep = ub <= low.min(0).values
+        rebase = keep & (t - s >= W // 2)
+        lb[b, :, :nb] = torch.where(rebase[None], low, lb[b, :, :nb])
+        since[b, :nb] = torch.where(rebase, t, s)
+        scan[b, :nb] = ~keep
+    return scan
+
+
+def pruned_assign_ref(ptsT, w, cur, cents, n, act, it, state):
+    """The model of K1 behind the filter: `filter_ref`, then the exact scan
+    (the scores, first minimum and strict-move rule of `assign_stats_ref`)
+    of the points that fail only, the statistics over every point of the
+    active lanes, and the scanned points' bounds set from their scan (lb[g]
+    the least distance to group g's centroids but the new one, since the
+    lane's iteration). Returns (new, sums, moved, scanned bool[B, n_max]) as
+    `assign_stats_ref` returns the first three."""
+    B, d, n_max = ptsT.shape
+    k = cents.shape[1]
+    lb, since = state["lb"], state["since"]
+    G = lb.shape[1]
+    dev = ptsT.device
+    grp = group_of(k, G, dev)
+    scan = filter_ref(ptsT, cur, cents, n, act, it, state)
+    new = torch.zeros((B, n_max), dtype=torch.int32, device=dev)
+    sums = torch.zeros((B, k, d + 1), dtype=torch.int64, device=dev)
+    moved = torch.zeros((B,), dtype=torch.int32, device=dev)
+    block = max(1, _REF_TILE[dev.type] // k)
+    top = torch.iinfo(torch.int64).max
+    for b in range(B):
+        nb = int(n[b])
+        if int(act[b]) == 0:
+            continue
+        nw = cur[b, :nb].to(torch.int64).clone()
+        idx_all = torch.nonzero(scan[b, :nb])[:, 0]
+        c = cents[b].to(torch.float64)
+        cc = (c * c).sum(1)
+        m2c = (-2.0 * c).T.contiguous()
+        for s in range(0, idx_all.numel(), block):
+            idx = idx_all[s:s + block]
+            p = ptsT[b][:, idx].to(torch.float64)              # (d, m)
+            score = torch.addmm(cc, p.T, m2c)                  # (m, k)
+            best = torch.argmin(score, dim=1)                  # first minimum
+            c0 = nw[idx]
+            best_s = score.gather(1, best[:, None])[:, 0]
+            cur_s = score.gather(1, c0[:, None])[:, 0]
+            got = torch.where(best_s < cur_s, best, c0)   # strictly closer
+            nw[idx] = got
+            d2 = (score + (p * p).sum(0)[:, None]).round().to(torch.int64)
+            d2.scatter_(1, got[:, None], top)                  # all but got
+            low = torch.full((G, idx.numel()), top, dtype=torch.int64,
+                             device=dev)
+            low = low.scatter_reduce(0, grp[:, None].expand(-1, idx.numel()),
+                                     d2.T, "amin")
+            lb[b][:, idx] = torch.where(low == top, _INF,      # a group of one
+                                        _sqrt_out(low.clamp(max=2**62),
+                                                  up=False))
+            since[b, idx] = int(it[b])
+        new[b, :nb] = nw.to(torch.int32)
+        moved[b] = (nw != cur[b, :nb]).sum().to(torch.int32)
+        wv = w[b, :nb].to(torch.int64)
+        feats = torch.cat([ptsT[b, :, :nb].to(torch.int64) * wv[None, :],
+                           wv[None, :]], dim=0).T
+        sums[b].index_add_(0, nw, feats)
+    return new, sums, moved, scan

@@ -1,15 +1,16 @@
 """Card-only checks of the PyTorch port: K1 (packed and unpacked paths, both
 statistics branches), D3 (alone and in K1's last blocks, the loop's one
-launch an iteration), K2 and K3 (both schedules each), D1 (both schedules)
-and D2 (with and without its root table) on the card against their plain
-versions, and the k-means engine and codecs, the gated Hilbert codecs and
-the gated Huffman codecs on the card against the CPU path. D3 given the
-steal candidates, and the point-sharded k-means on a world of one rank
-under NCCL. The bench's two k-means cells at full size against their pins.
-The sweep's device queue (cluster-colors(16..256), voronoi(64..2048)) over
-`mid_0000` against the committed `output_midtex` rows.
-D2 on mutated Huffman streams (the fuzz campaign's blobs) against its
-plain version.
+launch an iteration), K1's pruned instance (the bound filter in front of its
+scan) over many steps of midtex voronoi loops and through `_drive`, K2 and
+K3 (both schedules each), D1 (both schedules) and D2 (with and without its
+root table) on the card against their plain versions, and the k-means engine
+and codecs, the gated Hilbert codecs and the gated Huffman codecs on the
+card against the CPU path. D3 given the steal candidates, and the
+point-sharded k-means on a world of one rank under NCCL. The bench's two
+k-means cells at full size against their pins. The sweep's device queue
+(cluster-colors(16..256), voronoi(64..2048)) over `mid_0000` against the
+committed `output_midtex` rows. D2 on mutated Huffman streams (the fuzz
+campaign's blobs) against its plain version.
 
 Every case is marked `cuda` and decides inside its fixture whether there is a
 card, skipping with a reason when there is none. The file imports neither
@@ -22,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from cniic_tpu_torch import huffman, native
+from cniic_tpu_torch import huffman, native, synth_corpus
 from cniic_tpu_torch.codecs import from_spec
 from cniic_tpu_torch.experiments import fuzz_campaign
 from cniic_tpu_torch.ops import approx_rle as trle
@@ -344,6 +345,113 @@ def test_fused_step_matches_plain_versions(cuda, B, d, n, k, maxv, pmax,
     assert (tkk.assign_stats.launches, tkk.step_update.launches) == (
         before[0] + steps, before[1])
     assert state[5].tolist() == [steps] * B
+
+
+def _midtex_operands(k, rows, lanes, dev, seed=7):
+    """K1's operands at the init state of a voronoi(k) loop over `lanes`
+    bands of `rows` rows of midtex images (2040 wide: the unpacked path
+    from k = 512 up)."""
+    rng = np.random.default_rng(seed)
+    imgs = [synth_corpus.synth_textured(rng, 1356, 2040, brightness=0.80)
+            for _ in range(lanes)]
+    ptsT, w = tkm._voronoi_setup(torch.from_numpy(
+        np.stack([im[:rows] for im in imgs])).to(dev))
+    B, _, n = ptsT.shape
+    cur, cents = tkm._init_state(ptsT, [n] * B, k)
+    ns = torch.full((B,), n, dtype=torch.int32, device=dev)
+    act = torch.ones(B, dtype=torch.int32, device=dev)
+    return [ptsT, w, cur, cents, ns, act], [2039, rows - 1, 255, 255, 255]
+
+
+def _pruned_against_plain(ops, pmax, state, steps, dev):
+    """`steps` iterations of the pruned instance against K1's then D3's
+    plain versions, every tensor after every step; returns the scanned
+    share of each step (points scanned over points of the active lanes)."""
+    ptsT, w, cur, cents, ns, act = ops
+    n = ptsT.shape[2]
+    bounds = tkk.prune_state(cents, n)
+    want = [t.clone() for t in (cur, cents, act, *state)]
+    step = tkk.prepare_step(*ops, pmax, *state, 64, 1 << 40, bounds=bounds)
+    assert step.pruned
+    valid = torch.arange(n, device=dev)[None, :] < ns[:, None]
+    before = (tkk.assign_stats.launches, tkk.assign_stats.pruned_launches,
+              tkk.step_update.launches)
+    shares = []
+    for i in range(steps):
+        live = int(torch.where(act != 0, ns, 0).sum())
+        scanned = tkk.scanned_points()
+        step()
+        shares.append((tkk.scanned_points() - scanned) / max(live, 1))
+        w_cur, w_cents, w_act, _, _, *rest = want
+        new, sums, mk = tkk.assign_stats_ref(ptsT, w, w_cur, w_cents, ns,
+                                             w_act)
+        keep = valid & (w_act != 0)[:, None]
+        w_cur.copy_(torch.where(keep, new, w_cur))
+        tkk.step_update_ref(sums, mk, ptsT, ns, w_cents, *rest[:3], w_act,
+                            *rest[3:], 64, 1 << 40)
+        for g, w_ in zip([cur, cents, act, *state[2:6]],
+                         [w_cur, w_cents, w_act, *rest[:4]]):
+            assert torch.equal(g, w_), i
+        assert not state[0].any() and not state[1].any(), i
+    assert (tkk.assign_stats.launches - before[0],
+            tkk.assign_stats.pruned_launches - before[1],
+            tkk.step_update.launches - before[2]) == (steps, steps, 0)
+    return shares
+
+
+@pytest.mark.parametrize("k,rows,steps", [
+    (1024, 340, 200),   # global statistics
+    (2048, 340, 200),   # global statistics
+    (512, 340, 200),    # shared-memory statistics
+])
+def test_pruned_step_matches_plain_versions(cuda, k, rows, steps):
+    """K1's pruned instance (the bound filter in front of the scan), one
+    launch an iteration with D3 and the snapshots in each lane's last
+    block, against K1's then D3's plain versions over many steps of a
+    voronoi loop on midtex points: the filter skips most scans and changes
+    nothing."""
+    ops, pmax = _midtex_operands(k, rows, 2, cuda)
+    assert tkk.pruned_path(5, k, pmax)
+    state = _fused_state(ops, cuda, thresh=-1)   # no lane freezes
+    shares = _pruned_against_plain(ops, pmax, state, steps, cuda)
+    assert shares[0] > 0.9 and min(shares[steps // 2:]) < 0.5
+
+
+def test_pruned_step_through_steals_and_a_lane_that_freezes(cuda):
+    """Every fifth centroid starts equal to the one before it, which wins
+    every tie: those clusters go empty and the steal moves their centroids
+    far (the snapshots' displacement jumps); lane 1 freezes early on its
+    own threshold, lane 0 runs on."""
+    ops, pmax = _midtex_operands(1024, 200, 2, cuda, seed=9)
+    ptsT, w, cur, cents, ns, act = ops
+    cents[:, 1::5] = cents[:, 0:-1:5][:, : cents[:, 1::5].shape[1]]
+    cur.copy_(torch.where(cur % 5 == 1, cur - 1, cur))
+    state = _fused_state(ops, cuda, thresh=-1)
+    state[6][1] = int(ns[1]) // 64
+    empty = torch.bincount(cur[0].to(torch.int64), minlength=1024) == 0
+    assert int(empty.sum()) > 100
+    _pruned_against_plain(ops, pmax, state, 120, cuda)
+    it = state[5].tolist()
+    assert act.tolist() == [1, 0] and 0 < it[1] < it[0] == 120
+
+
+def test_drive_pruned_on_a_midtex_image_matches_unpruned(cuda, monkeypatch):
+    """`_drive` on the first midtex image at k = 2048 with the pruned
+    instance (picked by its shape) and with the unpruned kernel: the same
+    (iters, cur, cents)."""
+    ops, pmax = _midtex_operands(2048, 1356, 1, cuda)
+    ptsT, w, cur0, cents0, ns, _ = ops
+    runs = []
+    for pruned in (True, False):
+        if not pruned:
+            monkeypatch.setattr(tkm, "pruned_path", lambda *args: False)
+        before = tkk.assign_stats.pruned_launches
+        runs.append(tkm._drive(ptsT, w, cur0.clone(), cents0.clone(),
+                               ns.tolist(), 2048, pmax, 10_000))
+        assert (tkk.assign_stats.pruned_launches > before) is pruned
+    assert runs[0][0] == runs[1][0] > 100
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][2], runs[1][2])
 
 
 def test_fused_step_freezes_lanes_like_two_launches(cuda):
