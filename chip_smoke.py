@@ -73,7 +73,10 @@ Phases:
    have launched once an iteration and D3 never alone (the update runs in
    K1's last blocks; launches, iterations and the loops' host checks are
    printed per codec), the fused voronoi decode+MSE must have run, and the
-   runner must not have fallen back to per-image decode; then a
+   runner must not have fallen back to per-image decode; cluster-colors'
+   colour histograms on the card (one upload and one sort for the 9
+   images) must equal `native.hist_rgb` image by image and its streams
+   the CPU path's, both histograms timed in turns; then a
    torch.profiler window over one warm `encode_batch` of each (8 images)
    prints the device busy share, K1's share and the kernels an iteration
    (`cniic_tpu_torch.kmeans_profile.encode_window`). (ii) hilbert(rle),
@@ -184,8 +187,8 @@ from cniic_tpu_torch.codecs.base import pixels_row_major
 from cniic_tpu_torch.experiments import (fuzz_campaign, kmeans_phase_probe,
                                          profile_clusterc, roundtrip_campaign)
 from cniic_tpu_torch.image_io import load_image, save_png
-from cniic_tpu_torch.ops import (approx_rle, bitpack, histogram, hufdec,
-                                 kmeans_kernel)
+from cniic_tpu_torch.ops import (approx_rle, bitpack, color_hist, histogram,
+                                 hufdec, kmeans_kernel)
 from cniic_tpu_torch.ops import kmeans as km
 
 K1_SOURCE = "cniic_tpu_torch/csrc/kmeans_assign.cu"
@@ -1759,6 +1762,38 @@ def gate(name):
             os.environ[name] = old
 
 
+def _colour_hist_case(imgs, runs, dev, card):
+    """cluster-colors' device path on phase 4's images: one upload and one
+    sort (`ops/color_hist.py`) give each image's `native.hist_rgb` exactly,
+    and the streams the runner's `encode_batch` made on the card equal the
+    CPU path's; then the device histogram and the host C histograms of the
+    images timed in turns (host, device, device, host)."""
+    lh = color_hist.lane_histograms(imgs, dev)
+    for b, im in enumerate(imgs):
+        uniq, counts, inverse = native.hist_rgb(pixels_row_major(im))
+        colors, got_counts, got_inverse = lh.lane(b)
+        check(np.array_equal(histogram.pack_colors(colors), uniq)
+              and np.array_equal(got_counts, counts)
+              and np.array_equal(got_inverse, inverse),
+              f"the device colour histogram of image {b} differs from "
+              "native.hist_rgb")
+    spec = SPECS[0]
+    cpu = from_spec(spec, device="cpu").encode_batch(imgs)
+    check(runs[spec][2]["blobs"] == cpu,
+          f"{spec}: the streams on {dev.type} differ from the CPU path's")
+    (h1, h2), (d1, d2) = _pair_turns(
+        lambda: [histogram.color_histogram(pixels_row_major(im))
+                 for im in imgs],
+        lambda: color_hist.lane_histograms(imgs, dev), 3, dev)
+    mp = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
+    print(f"  colour histograms of the {len(imgs)} images ({mp:.3f} MP, "
+          f"{sum(lh.ns)} unique colours) on {dev.type}: equal to "
+          f"native.hist_rgb image by image; {spec}'s {len(cpu)} streams "
+          f"equal the CPU path's. One upload and sort {d1:.3f} / {d2:.3f} ms "
+          f"against the host C histograms' {h1:.3f} / {h2:.3f} ms in turns "
+          f"on {card}")
+
+
 def phase_main_path(imgs, paths, dev, card, out_dir):
     print("phase 4: the main paths, runner.measure_all(from_spec(spec, "
           f"device={dev.type!r}), {len(paths)} PNGs, batch=8)")
@@ -1782,6 +1817,7 @@ def phase_main_path(imgs, paths, dev, card, out_dir):
                   and log.iters <= n_k1 < log.iters + every * log.loops,
                   f"{spec}: {n_k1} K1 launches for {log.iters} iterations in "
                   f"{log.loops} loops")
+    _colour_hist_case(imgs, runs, dev, card)
     # D3 is on the path inside K1's launches, never as a launch of its own
     launches = {"K1": k1.launches, "D3": d3.launches}
     print(f"  K1 launches over the k-means path: {launches['K1']} (D3 in "

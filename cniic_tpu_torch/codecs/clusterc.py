@@ -16,7 +16,9 @@ rebuilds each pixel from the nearest centroid by the wrapping-u32 2-D
 distance (color ignored) — see ops/voronoi.py.
 
 Both take ``device`` ("cuda" or "cpu"); the k-means and the voronoi
-decode run there, the histograms and Huffman coding on the host, apart from
+decode run there. On a CUDA device cluster-colors' colour histograms and
+palette ids run there too (`CardStages`); on the CPU they run in the host
+C runtime (`HostStages`). Huffman coding runs on the host, apart from
 cluster-colors' Huffman payload under the env gates of ``huffman.py``
 (D1 packing, D2 decoding on ``device``).
 """
@@ -26,28 +28,27 @@ from __future__ import annotations
 import re
 
 import numpy as np
+import torch
 
 from .. import native, resolve_device, specs, wire
-from ..ops import histogram, kmeans, voronoi
+from ..ops import color_hist, histogram, kmeans, voronoi
 from .base import Codec, pixels_row_major
 from .hufman import Hufman
 
 
-def _palette_stream_parts(n: int, counts, inverse, centroids, assignment):
-    """(ids, freq, leaf) for the Huffman stream of the reduced image.
+def _palette(centroids, cluster_w):
+    """(pal_rank int32[k], freq, leaf): each cluster's id in the reduced
+    image's palette, the palette's frequencies and its leaf payloads, from
+    the centroids and each cluster's weight (the pixels it holds).
 
-    Built straight from the palette statistics — byte-identical to
-    Hufman().encode(palette[assignment][inverse]) but skips re-histogramming
-    the full reduced image. Distinct centroid colors can merge (several
-    clusters, one color), so dedup first.
+    Distinct centroid colors can merge (several clusters, one color), so
+    dedup first.
     """
     palette = centroids.astype(np.uint8)              # means stay in 0..255
     pal_keys = histogram.pack_colors(palette)
     uniq_keys, pal_rank = np.unique(pal_keys, return_inverse=True)
-    cluster_w = np.bincount(assignment, weights=counts.astype(np.float64),
-                            minlength=n)
     freq = np.zeros(uniq_keys.size, dtype=np.int64)
-    np.add.at(freq, pal_rank, cluster_w.astype(np.int64))
+    np.add.at(freq, pal_rank, np.asarray(cluster_w).astype(np.int64))
     # drop colors whose clusters are all empty: they never appear in the
     # reduced image, so the delegate Hufman path would not emit a leaf
     # for them
@@ -60,9 +61,137 @@ def _palette_stream_parts(n: int, counts, inverse, centroids, assignment):
     leaf = np.frombuffer(
         wire.rgb_stream_to_wire(histogram.unpack_colors(uniq_keys.astype(np.uint32))),
         dtype=np.uint8).reshape(-1, wire.RGB_WIRE_SIZE)
+    return pal_rank.astype(np.int32), freq, leaf
+
+
+def _palette_stream_parts(n: int, counts, inverse, centroids, assignment):
+    """(ids, freq, leaf) for the Huffman stream of the reduced image.
+
+    Built straight from the palette statistics — byte-identical to
+    Hufman().encode(palette[assignment][inverse]) but skips re-histogramming
+    the full reduced image.
+    """
+    cluster_w = np.bincount(assignment, weights=counts.astype(np.float64),
+                            minlength=n)
+    pal_rank, freq, leaf = _palette(centroids, cluster_w)
     # per-pixel palette ids in one C gather
-    ids = native.gather_i32(inverse, pal_rank.astype(np.int32)[assignment])
+    ids = native.gather_i32(inverse, pal_rank[assignment])
     return ids, freq, leaf
+
+
+def lane_order(uniques) -> list[int]:
+    """The lanes in `encode_batch`'s k-means order: by unique-colour count,
+    descending (ties keep the images' order). Every lane in a chunk is
+    padded to the chunk max and iterates until the chunk's straggler
+    converges, so homogeneous chunks waste less; per-lane trajectories are
+    independent, so the results do not depend on the grouping."""
+    return sorted(range(len(uniques)), key=uniques.__getitem__, reverse=True)
+
+
+def _unsort(order, sorted_results) -> list:
+    results: list = [None] * len(order)
+    for pos, i in enumerate(order):
+        results[i] = sorted_results[pos]
+    return results
+
+
+def _to_host(t) -> np.ndarray:
+    """`t` as a numpy array, copied from a CUDA device through pinned
+    memory (PyTorch's host allocator keeps the block for the next batch)."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t).numpy()
+
+
+class HostStages:
+    """`ClusterColors.encode_batch`'s four stages in the host C runtime
+    (``device="cpu"``): per-image C histograms (``ops/histogram.py``), one
+    ``kmeans_batch`` over the host lanes, the palette ids by a C gather,
+    then the Huffman stage. Each stage takes the previous ones' results:
+    ``hist(imgs)``, ``kmeans(h)``, ``parts(h, results)``, ``huf(imgs,
+    results, parts)``. A lane that failed the k-means yields its exception
+    in place of its result, part and stream."""
+
+    def __init__(self, k: int, device) -> None:
+        self.k = k
+        self.device = device
+
+    def hist(self, imgs):
+        return [histogram.color_histogram(pixels_row_major(im)) for im in imgs]
+
+    def uniques(self, h) -> list[int]:
+        return [s[0].shape[0] for s in h]
+
+    def kmeans(self, h) -> list:
+        order = lane_order(self.uniques(h))
+        return _unsort(order, kmeans.kmeans_batch(
+            [h[i][0].astype(np.int64) for i in order], self.k,
+            weights_list=[h[i][1].astype(np.int64) for i in order],
+            on_error="collect", device=self.device))
+
+    def parts(self, h, results) -> list:
+        return [None if isinstance(r, Exception) else
+                _palette_stream_parts(self.k, s[1], s[2], r[0], r[1])
+                for s, r in zip(h, results)]
+
+    def huf(self, imgs, results, parts) -> list:
+        from .. import huffman
+
+        ok = [i for i, p in enumerate(parts) if p is not None]
+        streams = huffman.batch_encode_streams(
+            [parts[i][0] for i in ok], [parts[i][1] for i in ok],
+            [parts[i][2] for i in ok], torch_device=self.device)
+        out: list = list(results)  # exceptions stay in place
+        for i, s in zip(ok, streams):
+            out[i] = wire.pack_dims(imgs[i].shape[1], imgs[i].shape[0]) + s
+        return out
+
+
+class CardStages(HostStages):
+    """The same stages on the device (any torch device; the codec takes
+    them on a CUDA one): the images go up once and one sort gives every
+    lane's histogram (``ops/color_hist.py``), K1's lanes are built from it
+    on the device (``kmeans.kmeans_lanes``), and each pixel's palette id is
+    gathered there; only the ids (int32) and a few small arrays come down
+    for the host Huffman stage. The streams are the host stages'."""
+
+    def hist(self, imgs):
+        return color_hist.lane_histograms(imgs, self.device)
+
+    def uniques(self, h) -> list[int]:
+        return list(h.ns)
+
+    def kmeans(self, h) -> list:
+        order = lane_order(h.ns)
+        return _unsort(order, kmeans.kmeans_lanes(
+            h.colors, h.counts, [(h.starts[i], h.ns[i]) for i in order],
+            self.k, on_error="collect"))
+
+    def parts(self, h, results) -> list:
+        parts: list = [None] * len(results)
+        ok = [i for i, r in enumerate(results) if not isinstance(r, Exception)]
+        if not ok:
+            return parts
+        dev = h.counts.device
+        lanes = [(h.starts[i], h.ns[i], results[i][1].to(torch.int64))
+                 for i in ok]
+        cluster_w = torch.zeros((len(ok), self.k), dtype=torch.int64,
+                                device=dev)
+        for row, (s, n, a) in zip(cluster_w, lanes):
+            row.index_add_(0, a, h.counts[s:s + n])
+        pals = [_palette(results[i][0], w)
+                for i, w in zip(ok, cluster_w.cpu().numpy())]
+        ranks = torch.from_numpy(np.stack([p[0] for p in pals])).to(dev)
+        # each unique colour's palette id, then each pixel's
+        lut = torch.zeros(h.counts.shape[0], dtype=torch.int32, device=dev)
+        for rank, (s, n, a) in zip(ranks, lanes):
+            lut[s:s + n] = rank[a]
+        ids = _to_host(torch.index_select(lut, 0, h.inverse))
+        for i, (_, freq, leaf) in zip(ok, pals):
+            o = h.offs[i]
+            parts[i] = (ids[o:o + h.npx[i]], freq, leaf)
+        return parts
 
 
 class ClusterColors(Codec):
@@ -70,59 +199,32 @@ class ClusterColors(Codec):
         self.n = int(n)
         self.device = resolve_device(device)
 
-    def encode(self, img: np.ndarray) -> bytes:
-        from .. import huffman
+    def stages(self) -> HostStages:
+        """`encode_batch`'s stages on this codec's device: `CardStages` on a
+        CUDA device (no fallback to the host histogram: a device failure
+        raises), `HostStages` on the CPU."""
+        cls = CardStages if self.device.type == "cuda" else HostStages
+        return cls(self.n, self.device)
 
-        h, w = img.shape[:2]
-        colors, counts, inverse = histogram.color_histogram(
-            pixels_row_major(img))
-        centroids, assignment, _ = kmeans.kmeans(
-            colors.astype(np.int64), self.n, weights=counts.astype(np.int64),
-            device=self.device)
-        ids, freq, leaf = _palette_stream_parts(
-            self.n, counts, inverse, centroids, assignment)
-        stream = huffman.encode_stream(ids, freq, leaf,
-                                       torch_device=self.device)
-        return wire.pack_dims(w, h) + stream
+    def encode(self, img: np.ndarray) -> bytes:
+        out = self._encode_all([img])[0]
+        if isinstance(out, Exception):
+            raise out
+        return out
 
     def encode_batch(self, imgs) -> list[bytes]:
-        """Batched: per-image host histograms, one lockstep k-means over
-        every image's unique colors (lanes freeze as they converge, so the
-        results equal `encode`'s), then the host Huffman stage."""
-        from .. import huffman
-
+        """Batched: every image's colour histogram, one lockstep k-means
+        over every image's unique colors (lanes freeze as they converge, so
+        the results equal `encode`'s), then the host Huffman stage."""
         if len(imgs) <= 1:
             return [self.encode(img) for img in imgs]
-        stats = [histogram.color_histogram(pixels_row_major(im)) for im in imgs]
-        # Sort lanes by unique-color count before the lane-chunked batch
-        # run: every lane in a chunk is padded to the chunk max and
-        # iterates until the chunk's straggler converges, so homogeneous
-        # chunks waste less; per-lane trajectories are independent, so the
-        # results do not depend on the grouping.
-        order = sorted(range(len(stats)),
-                       key=lambda i: stats[i][0].shape[0], reverse=True)
-        sorted_results = kmeans.kmeans_batch(
-            [stats[i][0].astype(np.int64) for i in order], self.n,
-            weights_list=[stats[i][1].astype(np.int64) for i in order],
-            on_error="collect", device=self.device)
-        results: list = [None] * len(stats)
-        for pos, i in enumerate(order):
-            results[i] = sorted_results[pos]
-        # a lane that failed the active-cluster floor yields its exception
-        # in place of the stream: the runner isolates that image
-        ok = [i for i, r in enumerate(results)
-              if not isinstance(r, Exception)]
-        parts = [
-            _palette_stream_parts(self.n, stats[i][1], stats[i][2],
-                                  results[i][0], results[i][1])
-            for i in ok]
-        streams = huffman.batch_encode_streams(
-            [p[0] for p in parts], [p[1] for p in parts], [p[2] for p in parts],
-            torch_device=self.device)
-        out: list = list(results)  # exceptions stay in place
-        for i, s in zip(ok, streams):
-            out[i] = wire.pack_dims(imgs[i].shape[1], imgs[i].shape[0]) + s
-        return out
+        return self._encode_all(imgs)
+
+    def _encode_all(self, imgs) -> list:
+        st = self.stages()
+        h = st.hist(imgs)
+        results = st.kmeans(h)
+        return st.huf(imgs, results, st.parts(h, results))
 
     def decode(self, data) -> np.ndarray:
         return Hufman(device=self.device).decode(data)

@@ -1,13 +1,14 @@
 """The colour histogram and exact RLE as torch ops on the card, against C.
 
-Port of ``scripts/experiments/device_hist_rle_probe.py``. The codecs run
-both stages in the host C runtime (``native.hist_rgb``, an LSD radix sort;
+Port of ``scripts/experiments/device_hist_rle_probe.py``. On the host
+both stages run in the C runtime (``native.hist_rgb``, an LSD radix sort;
 ``native.rle_frame``, one fused pass). This probe formulates them on the
 device, as the original did in jnp, here as torch ops:
 
 * histogram: the packed u24 keys sorted stably with their positions, run
   starts where a key differs from the one before, segment ids by a cumsum,
-  the inverse scattered back (``device_color_histogram``);
+  the inverse scattered back (``device_color_histogram``: the op that
+  cluster-colors runs on a CUDA device, ``ops/color_hist.py``);
 * exact RLE: the run-boundary mask over the scan (``device_rle``), then the
   host's closed-form split of runs at 255 (``runs_to_records``, a copy of
   ``cniic_tpu/ops/rle.py``'s).
@@ -15,7 +16,6 @@ device, as the original did in jnp, here as torch ops:
 Both are asserted equal to the C paths, then timed end to end (upload +
 compute + download, the median of three) beside them, on a
 ``synth_natural`` 2040x1356 image (seed 7), the RLE on its Hilbert scan.
-This is an experiment, not a path: torch's sort and scan are fine here.
 
     python -m cniic_tpu_torch.experiments.device_hist_rle_probe
         [--device=cuda]
@@ -32,7 +32,7 @@ import torch
 
 from .. import hilbert, native
 from ..bench import device_label
-from ..ops import histogram
+from ..ops import color_hist, histogram
 from ..synth_corpus import synth_natural
 from . import open_device, sync
 
@@ -46,19 +46,9 @@ def _keys(pix):
 
 def device_color_histogram(pixels: np.ndarray, dev):
     """(colors uint8[u, 3], counts int64[u], inverse int32[N]) of an
-    (N, 3) uint8 stream, computed on `dev`; the host only compacts."""
-    keys = _keys(torch.from_numpy(np.ascontiguousarray(pixels)).to(dev))
-    sk, pos = torch.sort(keys, stable=True)
-    change = torch.ones_like(sk, dtype=torch.bool)
-    change[1:] = sk[1:] != sk[:-1]
-    seg = torch.cumsum(change.to(torch.int32), 0, dtype=torch.int32) - 1
-    inverse = torch.empty_like(seg).scatter_(0, pos, seg)
-    sk_h, change_h = sk.cpu().numpy(), change.cpu().numpy()
-    inverse_h = inverse.cpu().numpy()                # 4 B/px download
-    starts = np.flatnonzero(change_h)
-    counts = np.diff(np.append(starts, sk_h.size))
-    return (histogram.unpack_colors(sk_h[starts].astype(np.uint32)), counts,
-            inverse_h)
+    (N, 3) uint8 stream, computed on `dev` by the codec's own device
+    histogram (``ops/color_hist.py``, one lane) and downloaded."""
+    return color_hist.lane_histograms([pixels[None]], dev).lane(0)
 
 
 def runs_to_records(starts: np.ndarray, n: int, scan: np.ndarray):

@@ -28,6 +28,13 @@ labelled so). Each call's results are held against the engine's own call
 (``kmeans_batch`` / ``voronoi_centroids_batch``) on the same lanes; a
 difference fails the run.
 
+cluster-colors' calls are probed from host lanes padded on the host
+(``pad_lanes``). The engine lays its lanes out on the device instead
+(``kmeans_lanes``; ``kmeans_batch`` uploads the host lanes in one buffer
+for it), and on a CUDA device the codec's lanes come from the device
+histogram with no host ``prep`` and no ``upload``; ``profile_clusterc``'s
+``kmeans`` stage times that whole.
+
     python -m cniic_tpu_torch.experiments.kmeans_phase_probe [--device=cuda]
         [--specs=cluster-colors(32),voronoi(128)] <pngs...>
 

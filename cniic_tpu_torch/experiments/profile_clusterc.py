@@ -1,13 +1,18 @@
 """Where a cluster-colors encode spends its time, stage by stage.
 
 Port of ``scripts/experiments/profile_clusterc.py``: the production
-``encode_batch`` path (``codecs/clusterc.py``) split into its four stages
-through the port's own functions, over groups of PNGs:
+``encode_batch`` path (``codecs/clusterc.py``) run stage by stage through
+the codec's own stage functions (``ClusterColors.stages()``), over groups
+of PNGs:
 
-* ``hist``: the host C colour histograms (``ops/histogram.py``);
-* ``kmeans``: one ``kmeans_batch`` over the lanes sorted by unique count,
-  as ``encode_batch`` sorts them, on ``--device`` (K1 on the card);
-* ``parts``: the palette stream parts (``clusterc._palette_stream_parts``);
+* ``hist``: the colour histograms: on the card one upload and one sort for
+  the group (``ops/color_hist.py``), on the CPU the host C histograms
+  (``ops/histogram.py``);
+* ``kmeans``: one k-means over the lanes sorted by unique count
+  (``kmeans_lanes`` on the card's lanes, ``kmeans_batch`` on the host's;
+  K1 on the card);
+* ``parts``: the palette stream parts, the per-pixel palette ids gathered
+  on the card and downloaded, or by a C gather on the host;
 * ``huf``: ``huffman.batch_encode_streams`` (host C, or D1 under
   CNIIC_DEVICE_BITPACK=1).
 
@@ -18,7 +23,11 @@ name and power limit. The streams the stages make are held byte for byte
 against ``encode_batch`` of the same images; a difference fails the run.
 
     python -m cniic_tpu_torch.experiments.profile_clusterc [--device=cuda]
-        [--lanes=8] [--chunks=2] [--k=32] <pngs...>
+        [--lanes=8] [--chunks=2] [--k=32] [--stages=codec|card|host] <pngs...>
+
+``--stages`` picks the stage functions: the codec's for the device
+(``codec``, the default), or ``card`` / ``host`` (``CardStages``,
+``HostStages``) on any device, so that the two are timed on one.
 
 The first group runs once untimed as the warmup, then the first
 ``--chunks`` groups of ``--lanes`` images run timed (the original warmed
@@ -35,62 +44,45 @@ import json
 import sys
 import time
 
-import numpy as np
-
-from .. import huffman, image_io, wire
+from .. import image_io
 from ..bench import device_label
-from ..codecs import ClusterColors
-from ..codecs.base import pixels_row_major
-from ..codecs.clusterc import _palette_stream_parts
-from ..ops import histogram, kmeans, kmeans_kernel
+from ..codecs import ClusterColors, clusterc
+from ..ops import kmeans_kernel
 from . import open_device, sync
 
 STAGES = ("hist", "kmeans", "parts", "huf")
 
 
-def profile_group(imgs, k: int, dev) -> dict:
+STAGE_SETS = {"card": clusterc.CardStages, "host": clusterc.HostStages}
+
+
+def profile_group(imgs, k: int, dev, stages: str = "codec") -> dict:
     """The four stages over one group of images: seconds each, the lanes'
     unique colours and iterations, K1 launches, and the streams."""
+    st = (ClusterColors(k, device=dev).stages() if stages == "codec"
+          else STAGE_SETS[stages](k, dev))
     t = {}
-    sync(dev)
-    t0 = time.perf_counter()
-    stats = [histogram.color_histogram(pixels_row_major(im)) for im in imgs]
-    t["hist"] = time.perf_counter() - t0
 
+    def timed(name, fn, *args):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync(dev)
+        t[name] = time.perf_counter() - t0
+        return out
+
+    h = timed("hist", st.hist, imgs)
     launches = kmeans_kernel.assign_stats.launches
-    t0 = time.perf_counter()
-    order = sorted(range(len(stats)),
-                   key=lambda i: stats[i][0].shape[0], reverse=True)
-    sorted_results = kmeans.kmeans_batch(
-        [stats[i][0].astype(np.int64) for i in order], k,
-        weights_list=[stats[i][1].astype(np.int64) for i in order],
-        on_error="collect", device=dev)
-    sync(dev)
-    t["kmeans"] = time.perf_counter() - t0
+    results = timed("kmeans", st.kmeans, h)
     launches = kmeans_kernel.assign_stats.launches - launches
-    results = [None] * len(stats)
-    for pos, i in enumerate(order):
-        results[i] = sorted_results[pos]
     bad = [r for r in results if isinstance(r, Exception)]
     if bad:
         raise bad[0]
-
-    t0 = time.perf_counter()
-    parts = [_palette_stream_parts(k, stats[i][1], stats[i][2],
-                                   results[i][0], results[i][1])
-             for i in range(len(imgs))]
-    t["parts"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    streams = huffman.batch_encode_streams(
-        [p[0] for p in parts], [p[1] for p in parts], [p[2] for p in parts],
-        torch_device=dev)
-    sync(dev)
-    t["huf"] = time.perf_counter() - t0
-    return {"seconds": t, "uniques": [s[0].shape[0] for s in stats],
+    parts = timed("parts", st.parts, h, results)
+    streams = timed("huf", st.huf, imgs, results, parts)
+    return {"seconds": t, "uniques": st.uniques(h),
             "iterations": [r[2] for r in results], "k1_launches": launches,
-            "streams": [wire.pack_dims(im.shape[1], im.shape[0]) + s
-                        for im, s in zip(imgs, streams)]}
+            "streams": streams}
 
 
 def main(argv=None) -> int:
@@ -100,6 +92,8 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes", type=int, default=8)
     ap.add_argument("--chunks", type=int, default=2)
     ap.add_argument("--k", type=int, default=32)
+    ap.add_argument("--stages", default="codec",
+                    choices=["codec", *STAGE_SETS])
     args = ap.parse_args(argv)
     paths = sorted(p for a in args.pngs for p in (globlib.glob(a) or [a]))
     need = args.lanes * args.chunks
@@ -110,16 +104,18 @@ def main(argv=None) -> int:
     if dev is None:
         return 1
     who = device_label(dev.type)
-    print(f"device {dev} ({who}) lanes={args.lanes} k={args.k}", flush=True)
+    print(f"device {dev} ({who}) lanes={args.lanes} k={args.k} "
+          f"stages={args.stages}", flush=True)
     groups = [paths[i:i + args.lanes] for i in range(0, need, args.lanes)]
     codec = ClusterColors(args.k, device=dev)
-    report = {"card": who, "lanes": args.lanes, "k": args.k, "groups": []}
+    report = {"card": who, "lanes": args.lanes, "k": args.k,
+              "stages": args.stages, "groups": []}
     tot = mp = 0.0
     for label, group in [("warmup", groups[0])] + [
             (f"chunk{i}", g) for i, g in enumerate(groups)]:
         imgs = [image_io.load_image(p) for p in group]
         mpx = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
-        r = profile_group(imgs, args.k, dev)
+        r = profile_group(imgs, args.k, dev, args.stages)
         if r["streams"] != codec.encode_batch(imgs):
             print(f"{label}: the stages' streams differ from encode_batch's",
                   file=sys.stderr)

@@ -22,13 +22,19 @@ stream bytes:
   improvement (disabled in strict mode); frozen lanes stop updating, so
   each lane's trajectory is the one it has alone;
 * the returned ``iters`` is the batch-global iteration count; lanes run in
-  chunks of ``CNIIC_KMEANS_LANES`` (8 for `kmeans_batch`, 4 for voronoi) so
-  that it compares equal with the reference.
+  chunks of ``CNIIC_KMEANS_LANES`` (8 for `kmeans_batch` and
+  `kmeans_lanes`, 4 for voronoi) so that it compares equal with the
+  reference.
+
+`kmeans_lanes` is the engine's one lane loop, over lanes already on the
+device (cluster-colors' colours from ``ops/color_hist.py``): the padding is
+done there, and only each lane's maxima and weight sum come to the host.
+`kmeans_batch` uploads host lanes in one buffer and runs it.
 
 Under a process group of several ranks (``parallel/mesh.py``), each chunk
 whose lanes the ranks divide is lane-sharded, as JAX shards the lane axis
-over its devices: every rank validates every lane, uploads and drives its own
-contiguous lanes, and gathers the others' results; ``iters`` is the chunk's
+over its devices: every rank validates every lane, lays out and drives its
+own contiguous lanes, and gathers the others' results; ``iters`` is the chunk's
 maximum over the ranks, so it equals the single-device count.
 CNIIC_MESH=0 turns this off.
 
@@ -70,6 +76,14 @@ _STALL_LIMIT = 64
 def _validate_lane(p: np.ndarray, wl, k: int) -> None:
     """Cheap per-lane feasibility checks (no padding, no uploads)."""
     n = p.shape[0]
+    max_w = 1 if wl is None or n == 0 else max(int(np.max(wl)), 1)
+    tot = n if wl is None else int(np.asarray(wl, np.int64).sum())
+    _validate_counts(n, int(p.max(initial=0)), max_w, tot, k)
+
+
+def _validate_counts(n: int, pmax: int, max_w: int, tot: int, k: int) -> None:
+    """`_validate_lane`'s checks on a lane's scalars: its point count, its
+    largest coordinate, its largest weight (at least 1) and its weight sum."""
     if k < 1:
         # before n // k: k == 0 must reject like every other infeasible k,
         # not escape collect-mode's ValueError isolation as ZeroDivisionError
@@ -80,12 +94,10 @@ def _validate_lane(p: np.ndarray, wl, k: int) -> None:
         raise ValueError("points_per_cluster must be > 0 (kmeans.rs:68)")
     if n >= 2**27:
         raise ValueError("kmeans point count must be < 2^27 (~134M)")
-    if int(p.max(initial=0)) > 16383:
+    if pmax > 16383:
         raise ValueError("kmeans coordinate values must be <= 16383")
-    max_w = 1 if wl is None else max(int(np.max(wl)), 1)
-    if int(p.max(initial=0)) * max_w >= 2**31:
+    if pmax * max_w >= 2**31:
         raise ValueError("kmeans weighted values must fit int32")
-    tot = n if wl is None else int(np.asarray(wl, np.int64).sum())
     if tot >= 2**27:
         raise ValueError("kmeans total weight must be < 2^27 (~134M pixels)")
 
@@ -223,72 +235,107 @@ def kmeans_batch(points_list, k: int, weights_list=None,
 
     Batches deeper than CNIIC_KMEANS_LANES (default 8) run as consecutive
     lane chunks; per-lane results do not depend on the chunking.
+
+    The lanes go up once, one after the other (int64, so that the checks
+    see the values as given), and run as `kmeans_lanes`.
     """
     dev = resolve_device(device)
-    max_lanes = int(os.environ.get("CNIIC_KMEANS_LANES", "8"))
-    if weights_list is None:
-        weights_list = [None] * len(points_list)
-    if len(points_list) > max_lanes > 0:
-        out = []
-        for i in range(0, len(points_list), max_lanes):
-            out.extend(kmeans_batch(
-                points_list[i:i + max_lanes], k, weights_list[i:i + max_lanes],
-                max_iters=max_iters, on_error=on_error, device=dev))
-        return out
-    if on_error == "collect":
-        keep, errs = [], {}
-        for i, (p, wl) in enumerate(zip(points_list, weights_list)):
-            try:
-                _validate_lane(np.asarray(p), wl, k)
-            except (ValueError, AssertionError) as e:
-                errs[i] = e
-                continue
-            keep.append(i)
-        if errs:
-            out: list = [None] * len(points_list)
-            for i, e in errs.items():
-                out[i] = e
-            if keep:
-                sub = kmeans_batch([points_list[i] for i in keep], k,
-                                   [weights_list[i] for i in keep],
-                                   max_iters=max_iters, on_error="collect",
-                                   device=dev)
-                for i, r in zip(keep, sub):
-                    out[i] = r
-            return out
-
     points_list = [np.asarray(p) for p in points_list]
     d = points_list[0].shape[1]
-    for p, wl in zip(points_list, weights_list):
-        if p.shape[1] != d:
-            raise ValueError("kmeans batch lanes must share dimensionality")
-        _validate_lane(p, wl, k)
-    pts, w, ns = pad_lanes(points_list, weights_list)
-    pmax = pts.max(axis=(0, 2)).tolist()
-    group, lo, hi = mesh.batch_lanes(len(ns))
-    ptsT = torch.from_numpy(pts[lo:hi]).to(dev)
+    if any(p.shape[1] != d for p in points_list):
+        raise ValueError("kmeans batch lanes must share dimensionality")
+    if weights_list is None:
+        weights_list = [None] * len(points_list)
+    ns = [p.shape[0] for p in points_list]
+    starts = np.cumsum([0] + ns[:-1]).tolist()
+    points = torch.from_numpy(
+        np.concatenate(points_list).astype(np.int64)).to(dev)
+    weights = torch.from_numpy(np.concatenate(
+        [np.ones(n, np.int64) if wl is None else np.asarray(wl, np.int64)
+         for n, wl in zip(ns, weights_list)])).to(dev)
+    out = kmeans_lanes(points, weights, list(zip(starts, ns)), k,
+                       max_iters=max_iters, on_error=on_error)
+    return [r if isinstance(r, Exception) else (r[0], r[1].cpu().numpy(), r[2])
+            for r in out]
+
+
+def kmeans_lanes(points, weights, lanes, k: int, max_iters: int = 10_000,
+                 on_error: str = "raise"):
+    """`kmeans_batch` over lanes already on the device: no host padding and
+    no upload. Lane b is ``points[s:s + n]`` ((U, d) nonnegative integers)
+    weighted by ``weights[s:s + n]`` ((U,) positive integers), with
+    ``(s, n) = lanes[b]``. Each lane's largest coordinate per dimension,
+    largest weight and weight sum are taken on the device and read back as
+    scalars for `_validate_lane`'s checks. Returns `kmeans_batch`'s list,
+    except that each assignment stays on the device: (centroids int64[k, d],
+    assignment int32[n] on the device, iters)."""
+    dev = points.device
+    d = points.shape[1]
+    rows = [torch.zeros(d + 2, dtype=torch.int64, device=dev) if n == 0 else
+            torch.cat([points[s:s + n].amax(0).to(torch.int64),
+                       weights[s:s + n].amax().to(torch.int64).view(1),
+                       weights[s:s + n].sum(dtype=torch.int64).view(1)])
+            for s, n in lanes]
+    stats = torch.stack(rows).tolist() if rows else []
+    max_lanes = int(os.environ.get("CNIIC_KMEANS_LANES", "8"))
+    step = max_lanes if max_lanes > 0 else max(len(lanes), 1)
+    out: list = []
+    for c in range(0, len(lanes), step):
+        out.extend(_lanes_chunk(points, weights, lanes[c:c + step],
+                                stats[c:c + step], k, max_iters, on_error))
+    return out
+
+
+def _lanes_chunk(points, weights, lanes, stats, k: int, max_iters: int,
+                 on_error: str):
+    """One chunk of `kmeans_lanes`; `stats` holds each lane's maxima per
+    dimension, largest weight and weight sum."""
+    d = points.shape[1]
+    out: list = [None] * len(lanes)
+    keep = []
+    for i, ((_, n), st) in enumerate(zip(lanes, stats)):
+        try:
+            _validate_counts(n, max(st[:d]), max(st[d], 1), st[d + 1], k)
+        except (ValueError, AssertionError) as e:
+            if on_error != "collect":
+                raise
+            out[i] = e
+            continue
+        keep.append(i)
+    if not keep:
+        return out
+    ns = [lanes[i][1] for i in keep]
+    # the step's layout, built on the device: zero points of weight 0 past
+    # each lane's n; pmax as that padded array gives it
+    pmax = np.max([stats[i][:d] for i in keep], axis=0).tolist()
+    group, lo, hi = mesh.batch_lanes(len(keep))
+    ptsT = torch.zeros((hi - lo, d, max(ns)), dtype=torch.int32,
+                       device=points.device)
+    w = torch.zeros((hi - lo, max(ns)), dtype=torch.int32,
+                    device=points.device)
+    for b, i in enumerate(keep[lo:hi]):
+        s, n = lanes[i]
+        ptsT[b, :, :n] = points[s:s + n].T
+        w[b, :n] = weights[s:s + n]
     cur, cents = _init_state(ptsT, ns[lo:hi], k)
-    it, cur, cents = _drive(ptsT, torch.from_numpy(w[lo:hi]).to(dev), cur,
-                            cents, ns[lo:hi], k, pmax, max_iters)
+    it, cur, cents = _drive(ptsT, w, cur, cents, ns[lo:hi], k, pmax,
+                            max_iters)
     if group is not None:
         cur = mesh.gather_lanes(group, cur)
         cents = mesh.gather_lanes(group, cents)
         it = mesh.all_max(group, it)
-    assign_np = cur.cpu().numpy()
+    actives = _active_counts(cur, k, ns).tolist()
     cents_np = cents.cpu().numpy().astype(np.int64)
-    out = []
-    for b, n in enumerate(ns):
-        assignment = assign_np[b, :n]
-        active = int(np.count_nonzero(np.bincount(assignment, minlength=k)))
+    for b, i in enumerate(keep):
         try:
-            _check_active(active, k, n)
+            _check_active(actives[b], k, ns[b])
         except AssertionError as e:
             if on_error != "collect":
                 raise
-            out.append(e)
+            out[i] = e
             continue
-        out.append((cents_np[b], assignment, it))
-    log.info("k-means: %d iterations over %d lane(s)", it, len(out))
+        out[i] = (cents_np[b], cur[b, :ns[b]], it)
+    log.info("k-means: %d iterations over %d lane(s)", it, len(keep))
     return out
 
 
@@ -323,11 +370,18 @@ def _voronoi_setup(imgs):
     return ptsT, w
 
 
-def _active_counts(cur, k: int):
-    """Distinct assigned clusters per lane: int32[B, n] -> int64[B]."""
-    hits = torch.zeros((cur.shape[0], k), dtype=torch.int32, device=cur.device)
-    hits.scatter_(1, cur.to(torch.int64), 1)
-    return hits.sum(dim=1)
+def _active_counts(cur, k: int, ns=None):
+    """Distinct assigned clusters per lane: int32[B, n] -> int64[B], over
+    each lane's first ``ns[b]`` points (all of them when `ns` is None)."""
+    idx = cur.to(torch.int64)
+    if ns is not None:
+        pos = torch.arange(cur.shape[1], device=cur.device)
+        lim = torch.tensor(ns, device=cur.device)[:, None]
+        idx = torch.where(pos < lim, idx, k)  # padding counts in column k
+    hits = torch.zeros((cur.shape[0], k + 1), dtype=torch.int32,
+                       device=cur.device)
+    hits.scatter_(1, idx, 1)
+    return hits[:, :k].sum(dim=1)
 
 
 def voronoi_centroids_batch(imgs: np.ndarray, k: int,

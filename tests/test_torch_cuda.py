@@ -5,8 +5,12 @@ scan) over many steps of midtex voronoi loops and through `_drive`, K2 and
 K3 (both schedules each), D1 (both schedules) and D2 (with and without its
 root table) on the card against their plain versions, and the k-means engine
 and codecs, the gated Hilbert codecs and the gated Huffman codecs on the
-card against the CPU path. D3 given the steal candidates, and the
-point-sharded k-means on a world of one rank under NCCL. The bench's two
+card against the CPU path; cluster-colors' colour histograms on the card
+against the host C histogram and its card stages' streams against the CPU
+path's, over the 8 midtex images, and one image's gated encode (the batch
+stages' D1 route) against its ungated and CPU streams. D3 given the steal
+candidates, and the point-sharded k-means on a world of one rank under
+NCCL. The bench's two
 k-means cells at full size against their pins. The sweep's device queue
 (cluster-colors(16..256), voronoi(64..2048)) over `mid_0000` against the
 committed `output_midtex` rows. D2 on mutated Huffman streams (the fuzz
@@ -1083,3 +1087,55 @@ def test_fused_mse_is_the_correctly_rounded_quotient(cuda, h, w):
                            torch.from_numpy(y).to(cuda)).cpu().tolist()
     tot = [int(((a.astype(np.int64) - c) ** 2).sum()) for a, c in zip(x, y)]
     assert got == [t / (h * w) for t in tot]
+
+
+@pytest.fixture(scope="module")
+def midtex8():
+    """`synth_corpus --midtex`'s first 8 images (2040x1356, seed 7), as the
+    kmeans-midtex8 cell makes them."""
+    rng = np.random.default_rng(7)
+    return [synth_corpus.synth_textured(rng, 1356, 2040, brightness=0.80)
+            for _ in range(8)]
+
+
+def test_device_colour_histograms_equal_hist_rgb_on_midtex(cuda, midtex8):
+    """One upload and one sort over the 8 midtex images give each image's
+    `native.hist_rgb`: unique colours in key order, counts, inverse."""
+    from cniic_tpu_torch.ops import color_hist, histogram
+
+    lh = color_hist.lane_histograms(midtex8, cuda)
+    assert lh.colors.is_cuda and lh.inverse.is_cuda
+    for b, im in enumerate(midtex8):
+        uniq, counts, inverse = native.hist_rgb(im.reshape(-1, 3))
+        colors, got_counts, got_inverse = lh.lane(b)
+        np.testing.assert_array_equal(histogram.pack_colors(colors), uniq)
+        np.testing.assert_array_equal(got_counts, counts)
+        np.testing.assert_array_equal(got_inverse, inverse)
+
+
+def test_cluster_colors_card_stages_equal_cpu_on_midtex(cuda, midtex8):
+    """cluster-colors(32) `encode_batch` on the card (the colour histogram,
+    K1's lanes and the palette ids on the device) gives the CPU path's
+    streams for the 8 midtex images, launching K1."""
+    before = tkk.assign_stats.launches
+    on_card = from_spec("cluster-colors(32)", device="cuda").encode_batch(
+        midtex8)
+    assert tkk.assign_stats.launches > before
+    assert on_card == from_spec("cluster-colors(32)",
+                                device="cpu").encode_batch(midtex8)
+
+
+def test_gated_single_image_cluster_colors_matches_cpu(cuda, monkeypatch):
+    """`encode` of one image runs the batch stages, so under
+    CNIIC_DEVICE_BITPACK=1 its payload is packed by D1's batch route: the
+    stream equals the ungated card stream and the CPU path's."""
+    rng = np.random.default_rng(13)
+    img = np.clip(rng.integers(0, 60, 3) + rng.integers(
+        -3, 4, (64, 80, 3)).cumsum(1), 0, 255).astype(np.uint8)
+    ungated = from_spec("cluster-colors(8)", device="cuda").encode(img)
+    monkeypatch.setenv("CNIIC_DEVICE_BITPACK", "1")
+    before = bitpack.pack_words.launches
+    gated = from_spec("cluster-colors(8)", device="cuda").encode(img)
+    assert bitpack.pack_words.launches > before
+    assert gated == ungated == from_spec("cluster-colors(8)",
+                                         device="cpu").encode(img)
