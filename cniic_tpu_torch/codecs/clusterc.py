@@ -229,6 +229,14 @@ class ClusterColors(Codec):
     def decode(self, data) -> np.ndarray:
         return Hufman(device=self.device).decode(data)
 
+    def decode_batch(self, blobs) -> list[np.ndarray]:
+        """One stream after another on the calling thread, not `host_map`:
+        on the card's host, with each batch decoded on the pool, the next
+        batch's encode (whose host Huffman stage runs on the calling
+        thread) ran slower, and kmeans-midtex8's `encode_mps` fell 6-11%,
+        past the cell's bound (PERF.md §6)."""
+        return [self.decode(b) for b in blobs]
+
     @property
     def name(self) -> str:
         return f"cluster-colors_{self.n}"

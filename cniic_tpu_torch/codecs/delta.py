@@ -23,7 +23,7 @@ import numpy as np
 
 from .. import hilbert, huffman, native, resolve_device, wire
 from ..ops import histogram
-from .base import Codec
+from .base import Codec, host_map
 
 LEAF_SIZE = 6  # 3 x i16 LE
 
@@ -76,9 +76,10 @@ class Delta(Codec):
     def encode_batch(self, imgs) -> list[bytes]:
         """Fused C stats per image, then one D1 launch over the batch
         (huffman.batch_encode_streams), under CNIIC_DEVICE_BITPACK=1 with
-        two images or more; otherwise the per-image lifecycle."""
+        two images or more; otherwise the per-image lifecycle, the images
+        spread over the host's CPUs (`host_map`)."""
         if len(imgs) < 2 or os.environ.get("CNIIC_DEVICE_BITPACK", "") != "1":
-            return [self.encode(img) for img in imgs]
+            return host_map(self.encode, imgs)
 
         stats = [_scan_stats(img) for img in imgs]
         streams = huffman.batch_encode_streams(

@@ -29,7 +29,7 @@ import os
 import numpy as np
 
 from .. import hilbert, native, resolve_device, wire
-from .base import Codec
+from .base import Codec, host_map
 
 
 def _records_to_bytes(counts: np.ndarray, colors: np.ndarray) -> bytes:
@@ -106,12 +106,13 @@ class Hilbert(Codec):
     def encode_batch(self, imgs) -> list[bytes]:
         """Approximate RLE of a batch in one K3 launch under
         CNIIC_PALLAS_RLE=1 (two images or more); otherwise each image goes
-        through `encode`. K3 is the f32 form of the recurrence, so its
+        through `encode`, the images spread over the host's CPUs
+        (`host_map`). K3 is the f32 form of the recurrence, so its
         streams equal `cniic_tpu`'s batch route, not always the exact
         engine's."""
         if (self.mode != "rle" or self.allow == 0.0 or len(imgs) < 2
                 or os.environ.get("CNIIC_PALLAS_RLE", "") in ("", "0")):
-            return [self.encode(img) for img in imgs]
+            return host_map(self.encode, imgs)
         from ..ops import approx_rle as parle
 
         scans = []

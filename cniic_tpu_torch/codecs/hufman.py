@@ -23,7 +23,7 @@ import numpy as np
 
 from .. import huffman, native, resolve_device, trace, wire
 from ..ops import histogram
-from .base import Codec, pixels_row_major
+from .base import Codec, host_map, pixels_row_major
 
 
 def _color_leafs(colors: np.ndarray) -> np.ndarray:
@@ -58,9 +58,10 @@ class Hufman(Codec):
         in one launch. Only under CNIIC_DEVICE_BITPACK=1 with two images or
         more: on the host packer the per-image lifecycle wins, since the
         stage-major layout holds every image's multi-MB stats live at once
-        and re-reads them cold."""
+        and re-reads them cold; its images are spread over the host's CPUs
+        (`host_map`)."""
         if len(imgs) < 2 or os.environ.get("CNIIC_DEVICE_BITPACK", "") != "1":
-            return [self.encode(img) for img in imgs]
+            return host_map(self.encode, imgs)
 
         with trace.span("huffman.stats"):
             stats = [histogram.color_histogram(pixels_row_major(img))

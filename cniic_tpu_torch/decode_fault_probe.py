@@ -18,8 +18,10 @@ page faults it took (`getrusage`), the process's thread count, and after
 each encode glibc's heap arena and mmapped bytes (`mallinfo2`, where the C
 library has it). A decode that runs slower after an encode than alone, with
 more faults, pays for memory the allocator handed back to the kernel in
-between; CPU seconds above the wall seconds are other threads at work
-beside the one-threaded host decode.
+between; CPU seconds above the wall seconds are threads at work beside
+the calling one (the host-C codecs' `decode_batch` spreads its images over
+the host's allowed CPUs, `codecs.base.host_map`; cluster-colors' decodes
+one image after another on the calling thread).
 
 The last line is one JSON object: the card, the medians of each step's
 readings in each phase, and every pass's readings. Exit 1 if a decoded

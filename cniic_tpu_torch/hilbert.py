@@ -3,10 +3,12 @@
 Copy of ``cniic_tpu/hilbert.py``: the curve providers (``CNIIC_CURVE``:
 ``gilbert``, ``snake``), the memory and disk caches, the gathers and
 scatters, and the pure-Python ``gilbert_py`` twin, unchanged apart from its
-imports and the default place of the disk cache, which lies inside this
-package's git-ignored ``_build/`` directory (``CNIIC_HILBERT_CACHE``
-overrides it). The curve comes from the same C source as the reference's, so
-``scan_indices`` agrees with it exactly (tested).
+imports, a lock around the memory caches (the host codecs ask for curves
+from several threads at once) and the default place of the disk cache,
+which lies inside this package's git-ignored ``_build/`` directory
+(``CNIIC_HILBERT_CACHE`` overrides it). The curve comes from the same C
+source as the reference's, so ``scan_indices`` agrees with it exactly
+(tested).
 
 The reference linearizes images along a pseudo-Hilbert scan of the exact
 image rectangle (reference src/hilbert.rs:40-43). Here, as in ``cniic_tpu``,
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 
 import numpy as np
 
@@ -85,13 +88,21 @@ def _scan_coords_for(name: str, w: int, h: int) -> np.ndarray:
     return coords
 
 
+# Held around every read of the three caches below, so that a curve missing
+# from them is made once when several threads ask for it together
+# (`codecs.base.host_map`); a hit holds it for the cache lookup alone.
+_cache_lock = threading.Lock()
+
+
 def scan_coords(w: int, h: int) -> np.ndarray:
     """(w*h, 2) int32 array of (x, y) positions in scan order.
 
     Cached in memory per (curve, shape) and on disk across processes (a
     DIV2K-sized curve costs ~0.2-1 s to generate; sweeps touch the same few
     shapes from many processes)."""
-    return _scan_coords_for(curve_name(), w, h)
+    name = curve_name()
+    with _cache_lock:
+        return _scan_coords_for(name, w, h)
 
 
 @functools.lru_cache(maxsize=64)
@@ -104,7 +115,9 @@ def _scan_indices_for(name: str, w: int, h: int) -> np.ndarray:
 
 def scan_indices(w: int, h: int) -> np.ndarray:
     """Flat row-major indices (y*w + x) in scan order; use as a gather map."""
-    return _scan_indices_for(curve_name(), w, h)
+    name = curve_name()
+    with _cache_lock:
+        return _scan_indices_for(name, w, h)
 
 
 @functools.lru_cache(maxsize=64)
@@ -118,7 +131,9 @@ def _inverse_indices_for(name: str, w: int, h: int) -> np.ndarray:
 
 def inverse_indices(w: int, h: int) -> np.ndarray:
     """inverse permutation: position of each row-major pixel in the scan."""
-    return _inverse_indices_for(curve_name(), w, h)
+    name = curve_name()
+    with _cache_lock:
+        return _inverse_indices_for(name, w, h)
 
 
 def linearize(img: np.ndarray) -> np.ndarray:

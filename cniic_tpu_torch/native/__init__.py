@@ -14,13 +14,16 @@ byte-for-byte copy of the reference's one file
 loader of ``cniic_tpu/native`` does.
 All entry points release the GIL for the duration of the call (plain ctypes
 semantics), so host-side codec work can overlap device work from other
-threads.
+threads, and a batch's images run on several threads at once
+(`codecs.base.host_map`); the library is loaded and its argtypes declared
+once, under a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import numpy as np
 
@@ -40,12 +43,24 @@ def _commands():
 
 
 _lib = None
+_load_lock = threading.Lock()
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
+    """The C runtime with every entry point's argtypes declared. The first
+    calls may come from several threads at once (`codecs.base.host_map`):
+    the lock keeps any of them from using the library before its argtypes
+    are all set."""
     if _lib is not None:
         return _lib
+    with _load_lock:
+        if _lib is None:
+            _declare()
+    return _lib
+
+
+def _declare() -> None:
+    global _lib
     # CNIIC_NATIVE_LIB names an alternate prebuilt library (the ASan fuzz
     # build, `make asan-fuzz`), loaded as-is and never rebuilt. Read here,
     # once, at first use, so a variable set after import is seen.
@@ -134,7 +149,6 @@ def _load() -> ctypes.CDLL:
     lib.cniic_buf_free.restype = None
 
     _lib = lib
-    return lib
 
 
 def _as_u8p(arr: np.ndarray):

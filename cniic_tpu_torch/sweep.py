@@ -13,7 +13,9 @@ threads —
 
 The host-C engines release the GIL inside ctypes calls and the device queue
 releases it while it waits on the card, so the host queue runs inside the
-device queue's wait windows. Each config still runs through the stock
+device queue's wait windows; within a host config, the codec's
+`encode_batch`/`decode_batch` spread each batch's images over the host's
+allowed CPUs (`codecs.base.host_map`). Each config still runs through the stock
 `runner.measure_all` and writes its own CSV — streams and CSV contents are
 byte-identical to serial runs by construction (the queues share no codec
 state, and the card is touched only by the device queue). The sweep brings
